@@ -1,0 +1,209 @@
+"""Attention: GQA / qk-norm / sliding-window / logit-softcap, with a
+q-blocked plain path for long sequences, a flash path through the
+hand-written kernel, and a decode path that reads a ring-buffer KV
+cache.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm_simple
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg: ModelConfig, att: AttentionConfig, dtype, *,
+                   device, generator) -> dict:
+    d = cfg.d_model
+    hq, hkv = att.n_heads * att.d_head, att.n_kv_heads * att.d_head
+    kw = dict(device=device, generator=generator)
+    p = {
+        "wq": dense_init(d, hq, dtype, **kw),
+        "wk": dense_init(d, hkv, dtype, **kw),
+        "wv": dense_init(d, hkv, dtype, **kw),
+        "wo": dense_init(hq, d, dtype, **kw),
+    }
+    if att.qkv_bias:
+        p["bq"] = torch.zeros((hq,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv,), dtype=dtype, device=device)
+    if att.qk_norm:
+        p["q_norm"] = torch.ones((att.d_head,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((att.d_head,), dtype=dtype, device=device)
+    return p
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_cache, n_kv, d_head)
+    v: torch.Tensor       # (B, S_cache, n_kv, d_head)
+    # the *global* write cursor (tokens seen so far); one for the batch
+    index: int
+
+
+def _qkv(p: dict, att: AttentionConfig, x: torch.Tensor,
+         positions: torch.Tensor):
+    """x: (B,S,d) -> q (B,S,H,dh), k/v (B,S,KV,dh); qk-norm, then RoPE."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if att.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, att.n_heads, att.d_head)
+    k = k.reshape(B, S, att.n_kv_heads, att.d_head)
+    v = v.reshape(B, S, att.n_kv_heads, att.d_head)
+    if att.qk_norm:
+        q = rms_norm_simple(q, p["q_norm"])
+        k = rms_norm_simple(k, p["k_norm"])
+    if att.use_rope:
+        q = apply_rope(q, positions, att.rope_theta)
+        k = apply_rope(k, positions, att.rope_theta)
+    return q, k, v
+
+
+def repeat_kv(h: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B,S,KV,dh) -> (B,S,KV*n_rep,dh); kv head j serves q heads
+    j*n_rep .. j*n_rep + n_rep - 1."""
+    if n_rep == 1:
+        return h
+    B, S, KV, dh = h.shape
+    h = h[:, :, :, None, :].expand(B, S, KV, n_rep, dh)
+    return h.reshape(B, S, KV * n_rep, dh)
+
+
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """Additive mask (Sq,Skv) in fp32. q_pos (Sq,), kv_pos (Skv,)."""
+    ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        ok &= (q_pos[:, None] - kv_pos[None, :]) < window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def sdpa(q, k, v, bias, *, softcap_val: Optional[float]) -> torch.Tensor:
+    """q (B,Sq,H,dh), k/v (B,Skv,H,dh), bias broadcastable to (B,H,Sq,Skv)."""
+    dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    if softcap_val is not None:
+        scores = torch.tanh(scores / softcap_val) * softcap_val
+    scores = scores + bias
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+
+
+def attention_forward(p: dict, att: AttentionConfig, x: torch.Tensor,
+                      positions: torch.Tensor, *, window: Optional[int],
+                      causal: bool, block_q: int = 1024,
+                      return_kv: bool = False):
+    """Full-sequence (train / prefill) attention, q-blocked when long."""
+    B, S, d = x.shape
+    q, k, v = _qkv(p, att, x, positions)
+    n_rep = att.n_heads // att.n_kv_heads
+    kf, vf = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    kv_pos = positions
+
+    if S <= block_q:
+        bias = _mask_bias(positions, kv_pos, causal=causal, window=window)
+        out = sdpa(q, kf, vf, bias[None, None], softcap_val=att.logit_softcap)
+    else:
+        assert S % block_q == 0, (S, block_q)
+        blocks = []
+        for i in range(S // block_q):
+            sl = slice(i * block_q, (i + 1) * block_q)
+            bias = _mask_bias(positions[sl], kv_pos, causal=causal,
+                              window=window)
+            blocks.append(sdpa(q[:, sl], kf, vf, bias[None, None],
+                               softcap_val=att.logit_softcap))
+        out = torch.cat(blocks, dim=1)
+
+    out = out.reshape(B, S, att.n_heads * att.d_head) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_forward_flash(p: dict, att: AttentionConfig, x: torch.Tensor,
+                            positions: torch.Tensor, *,
+                            window: Optional[int], causal: bool,
+                            return_kv: bool = False):
+    """attention_forward, but the inner softmax-attention runs in the
+    flash kernel (CUDA tensors; its plain version on CPU tensors)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, d = x.shape
+    q, k, v = _qkv(p, att, x, positions)
+    out = flash_attention(q, k, v, causal, window, att.logit_softcap)
+    out = out.reshape(B, S, att.n_heads * att.d_head) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
+                     cache: KVCache, *, window: Optional[int]
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B,1,d); cache k/v: (B,Sc,KV,dh).
+
+    For windowed layers the cache is a ring buffer of size >= window; for
+    full layers Sc is the max context. ``cache.index`` is the global
+    token position of the incoming token.
+    """
+    B, S1, d = x.shape
+    assert S1 == 1
+    Sc = cache.k.shape[1]
+    index = int(cache.index)
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, att, x, pos)
+
+    # The new K/V go into the ring-buffer slot IN PLACE (the reference
+    # builds a new cache with dynamic_update_slice); the cache belongs to
+    # one request's decode state, so nothing else sees the write.
+    slot = index % Sc
+    k, v = cache.k, cache.v
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+
+    # Position of every cache slot, reconstructed from the ring layout:
+    # the most recent position p <= index with p % Sc == slot.
+    slots = torch.arange(Sc, dtype=torch.int64, device=x.device)
+    slot_pos = index - torch.remainder(index - slots, Sc)
+    valid = slot_pos >= 0
+    if window is not None:
+        valid &= (index - slot_pos) < window
+
+    # Grouped layout: q reshaped (B, KV, G, dh), K/V never repeated to H
+    # heads. Products accumulate in fp32 from the cache's own values, as
+    # the reference's preferred_element_type=fp32 einsums do.
+    G = att.n_heads // att.n_kv_heads
+    qg = q.reshape(B, att.n_kv_heads, G, att.d_head)
+    scale = 1.0 / math.sqrt(att.d_head)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(k.dtype).float(),
+                     k.float()) * scale
+    if att.logit_softcap is not None:
+        s = torch.tanh(s / att.logit_softcap) * att.logit_softcap
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = s + torch.where(valid, zero, NEG_INF)[None, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    out = out.reshape(B, 1, att.n_heads * att.d_head) @ p["wo"]
+    return out, KVCache(k=k, v=v, index=index + 1)
+
+
+def init_cache(att: AttentionConfig, batch: int, max_seq: int,
+               window: Optional[int], dtype, *, device) -> KVCache:
+    Sc = min(max_seq, window) if window is not None else max_seq
+    shape = (batch, Sc, att.n_kv_heads, att.d_head)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   index=0)

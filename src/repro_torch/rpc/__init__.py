@@ -1,0 +1,132 @@
+"""repro_torch.rpc — in-process RPC fabric (gRPC analogue).
+
+Layers, bottom-up:
+
+  framing     wire format (unary + stream-chunk frames, incl. the
+              budget_us deadline-propagation header word); serialized
+              mode coalesces iovecs through the payload_pack kernel
+  flow        credit-based flow control (per-channel, per-direction
+              windows; ChunkGate FIFO for stream chunks)
+  completion  completion-queue event loop primitive
+  transport   pluggable Transports (built via make_transport): loopback
+              (shared-buffer memcpy), simulated (netmodel-priced
+              ingress+egress, hundreds of endpoints), fault (seeded
+              fault-injection wrapper around any of them)
+  cluster     ClusterSpec (named endpoints/jobs/links) + the
+              multi-endpoint ClusterTransport: per-link routing and
+              pricing, endpoint-addressed channels, per-endpoint
+              windows — the PS-style multi-host topology layer
+  collective  transport lowering flights onto core.channels ppermute
+              schedules (measured on real devices)
+  fabric      Channel/Server API, unary + client/server/bidi streaming
+              calls, flush loop (deadline enforcement + propagation:
+              budgets stamped at flight departure, servers shed
+              expired work before handlers run);
+              fully_connected/ring/incast exchanges
+  interceptors client/server interceptor chains: metrics (incl.
+              queue-depth/shed/rejection tracking), deadline defaults,
+              budget-aware retry (unary + zero-chunk server-stream),
+              admission control (ResourceExhausted rejections)
+  service     declarative ServiceDef/MethodSpec + generated Stubs —
+              the gRPC-style API surface over the fabric
+  tracing     distributed tracing: per-call span trees (phases, wire
+              spans, server spans) on the fabric clock, trace ids
+              propagated in a frame-header word, Chrome trace-event
+              export (Perfetto) + per-phase latency breakdown
+  telemetry   bounded latency histograms (exact up to a cap, then
+              log-bucketed) behind a shared HistogramRegistry — what
+              MetricsInterceptor records percentiles into
+
+See docs/RPC.md for the architecture and transport matrix.
+"""
+from repro_torch.rpc.completion import CompletionQueue, Event
+from repro_torch.rpc.fabric import (BIDI, CLIENT_STREAM, DEADLINE_EXCEEDED,
+                              HANDLER_FAULTS, LINK_FAULT, SERVER_STREAM,
+                              UNARY, BidiStream, Call, Channel,
+                              FlightReport, RpcError, RpcFabric, Server,
+                              ServerStream, StreamHandle, StreamPump,
+                              fully_connected_exchange, incast_exchange,
+                              ring_exchange)
+from repro_torch.rpc.cluster import (ClusterSpec, ClusterTransport,
+                               EndpointSpec, LinkSpec, as_cluster_spec,
+                               cluster_allreduce_time,
+                               cluster_fc_round_time,
+                               cluster_incast_round_time,
+                               cluster_ring_allreduce_time,
+                               cluster_ring_round_time,
+                               cluster_rsag_allreduce_time,
+                               cluster_tree_allreduce_time, homogeneous,
+                               ps_worker_cluster)
+from repro_torch.rpc.collectives import (ALLREDUCE_ALGOS, CollectiveReport,
+                                   allreduce, ring_allreduce,
+                                   rsag_allreduce, tree_allreduce)
+from repro_torch.rpc.flow import ChunkGate, CreditWindow, FlowStats, WindowConfig
+from repro_torch.rpc.interceptors import (AdmissionInterceptor, CallContext,
+                                    ClientInterceptor,
+                                    DeadlineInterceptor,
+                                    MetricsInterceptor, ResourceExhausted,
+                                    RetryInterceptor, ServerContext,
+                                    ServerInterceptor, TransientError,
+                                    is_resource_exhausted, is_transient)
+from repro_torch.rpc.service import (ALLREDUCE_SERVICE, CONFORMANCE_SERVICE,
+                               EXCHANGE_SERVICE,
+                               INCAST_SERVICE, RING_SERVICE, Codec,
+                               MethodSpec, ServiceDef, Stub, StubMethod,
+                               UnaryCall, conformance_handlers)
+from repro_torch.rpc.bufpool import (BufferPool, PoolExhausted, get_pool,
+                               release_call, reset_pools)
+from repro_torch.rpc.framing import (FLAG_ERROR, FLAG_FAULT, FLAG_ONE_WAY,
+                               FLAG_REPLY, FLAG_SERIALIZED, FLAG_STREAM,
+                               FLAG_STREAM_END, FLAG_ZERO_COPY,
+                               WIRE_MODES, Frame, FramingError, decode,
+                               encode, make_frame, method_id,
+                               resolve_wire_mode, stream_chunk)
+from repro_torch.rpc.telemetry import BoundedHistogram, HistogramRegistry
+from repro_torch.rpc.tracing import PHASES, Span, Tracer
+from repro_torch.rpc.transport import (Delivery, FaultInjectionTransport,
+                                 LoopbackTransport, Message,
+                                 SimulatedTransport, Transport,
+                                 collective_transport_missing,
+                                 make_transport, schedule_rounds,
+                                 spec_of)
+
+__all__ = [
+    "ALLREDUCE_ALGOS", "ALLREDUCE_SERVICE",
+    "AdmissionInterceptor", "BIDI", "BidiStream", "BoundedHistogram",
+    "BufferPool", "Call", "CallContext", "CollectiveReport",
+    "Channel", "ChunkGate", "CLIENT_STREAM", "CONFORMANCE_SERVICE",
+    "ClientInterceptor", "ClusterSpec", "ClusterTransport", "Codec",
+    "CompletionQueue", "CreditWindow", "DEADLINE_EXCEEDED",
+    "DeadlineInterceptor", "Delivery", "EXCHANGE_SERVICE",
+    "EndpointSpec", "Event", "FaultInjectionTransport", "FlightReport",
+    "FlowStats", "Frame", "FramingError", "HANDLER_FAULTS",
+    "HistogramRegistry",
+    "INCAST_SERVICE", "LINK_FAULT", "LinkSpec", "LoopbackTransport",
+    "Message", "MethodSpec", "MetricsInterceptor", "PHASES",
+    "PoolExhausted",
+    "RING_SERVICE", "ResourceExhausted", "RetryInterceptor", "RpcError",
+    "RpcFabric", "SERVER_STREAM", "Server", "ServerContext",
+    "ServerInterceptor", "ServerStream", "ServiceDef",
+    "SimulatedTransport", "Span", "StreamHandle", "StreamPump", "Stub",
+    "StubMethod",
+    "Tracer", "Transport", "TransientError", "UNARY",
+    "UnaryCall", "WIRE_MODES", "WindowConfig", "allreduce",
+    "as_cluster_spec", "cluster_allreduce_time",
+    "cluster_fc_round_time", "cluster_incast_round_time",
+    "cluster_ring_allreduce_time", "cluster_ring_round_time",
+    "cluster_rsag_allreduce_time", "cluster_tree_allreduce_time",
+    "conformance_handlers", "decode",
+    "encode", "fully_connected_exchange", "get_pool", "homogeneous",
+    "incast_exchange", "is_resource_exhausted", "is_transient",
+    "ring_allreduce", "rsag_allreduce", "tree_allreduce",
+    "make_frame", "make_transport", "method_id", "ps_worker_cluster",
+    "release_call", "reset_pools", "resolve_wire_mode", "ring_exchange",
+    "schedule_rounds", "spec_of", "stream_chunk",
+    "FLAG_ERROR", "FLAG_FAULT", "FLAG_ONE_WAY", "FLAG_REPLY",
+    "FLAG_SERIALIZED", "FLAG_STREAM", "FLAG_STREAM_END",
+    "FLAG_ZERO_COPY",
+]
+
+
+#: raises: the collective transport is not ported yet
+CollectiveTransport = collective_transport_missing
