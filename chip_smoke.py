@@ -7,32 +7,51 @@ root, with no arguments:
 
 Phases (any failure raises, and the script exits non-zero):
 
-1. environment and build: the card's name and power limit, then the
-   flash attention kernel compiled from ``src/repro_torch/csrc``;
-2. kernel vs plain: the kernel against ``attention_plain`` on the
-   reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2) and on
+1. environment and build: the card's name and power limit, then every
+   kernel of ``src/repro_torch/csrc`` compiled, one nvcc each, started
+   together;
+2. flash attention vs plain: the kernel against ``attention_plain`` on
+   the reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2) and on
    the Qwen3-8B prefill shape, then kernel / plain / SDPA times there;
-3. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
+3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
+   reference's kernel-test sizes, unaligned serialization sizes, 8
+   endpoint rows of the default payload and of the Qwen3-8B payload,
+   and framing's ``backend="kernel"`` against ``backend="numpy"``; then
+   kernel / plain / library (``torch.cat``, ``split``) times at both row
+   shapes;
+4. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
    through the port's serve entry point, ``--batch 4 --prompt-len 512
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
    ``--unary`` and with ``--no-rpc``. Greedy tokens must agree across the
    three, and the kernel must have launched 36 times per prefill;
-4. end to end, kernel vs plain: last-position logits of the same
+5. end to end, kernel vs plain: last-position logits of the same
    prompts with the flash kernel on and off (bf16, Qwen3-8B), two
    controls (the kernel with a window that drops keys, and with the
    causal mask off) that the bound must catch, and a reduced model in
    fp32;
-5. a JSON line of kernel numbers, then the result line.
+6. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
+   p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
+   default payload and with ``--arch qwen3-8b``, and fully_connected on
+   the collective transport. Serialized runs must launch the pack
+   kernel (and unpack, where the family unpacks), non-serialized runs
+   neither;
+7. the channels on the card against the same channels on CPU rows,
+   byte for byte (the CPU tests hold those equal to the JAX package),
+   and ``--check-baseline benchmarks/BENCH_fabric.json``;
+8. a JSON line of kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -77,6 +96,17 @@ E2E_CONTROLS = {"window S - 64": {"sliding_window": PROMPT_LEN - 64},
 # The reduced model in fp32: the kernel and the plain path are both fp32
 # throughout, so they differ only in summation order.
 E2E_FP32_TOL = 1e-4
+KERNEL_SOURCES = ("flash_attention", "payload_pack")
+# payload pack / unpack: the reference's kernel-test sizes (aligned, and
+# lists drawn as its hypothesis property draws them), the unaligned
+# sizes serialization hands the kernels, and the endpoint rows of the
+# suite (the CLI's 8)
+PP_ALIGNED = (128, 512, 1024, 128)
+PP_UNALIGNED = (10, 1, 300, 4097, 77)
+ROWS = 8
+SUITE = [("p2p_latency", []), ("p2p_bandwidth", []),
+         ("ps_throughput", ["--num-ps", "2", "--num-workers", "3"])]
+SUITE_TIMES = ["--warmup", "0.2", "--duration", "1"]
 
 
 def card() -> str:
@@ -123,16 +153,40 @@ def attention_bound(q, k, v, causal, window):
                                  else "operations")
 
 
+def gpu_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn`` with L2 cold: each call
+    sits between its own pair of events, after a 128 MiB write that
+    evicts the 50 MB L2, and a sleep kernel first keeps the card busy
+    until the host has queued every call, so host overhead between
+    calls is not counted."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
 def phase_build(name: str) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build("flash_attention")
-    print(f"[build] flash_attention.cu -> sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds['flash_attention']:.2f} s)")
-    for line in _build.build_log.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))
+    print(f"[build] {', '.join(KERNEL_SOURCES)} -> sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{k} {_build.build_seconds[k]:.2f} s"
+                      for k in KERNEL_SOURCES) + ")")
+    for src in KERNEL_SOURCES:
+        for line in _build.build_log.get(src, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src}: {line.strip()}")
 
 
 def phase_kernel(name: str) -> dict:
@@ -193,6 +247,235 @@ def phase_kernel(name: str) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms}
+
+
+def _frames():
+    """The frames of tests/test_torch_package.py, zero-size buffers
+    included."""
+    import numpy as np
+
+    from repro_torch.rpc import framing as fr
+    rng = np.random.default_rng(0)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8)
+            for n in (0, 1, 127, 128, 129, 1000, 0)]
+    return [fr.make_frame(7, "Serve/generate", bufs, serialized=True),
+            fr.make_frame(8, "Serve/generate", bufs, serialized=False),
+            fr.make_frame(9, "Serve/generate", [], serialized=True),
+            fr.stream_chunk(10, "Serve/generate_stream", bufs[:3], seq=3,
+                            end=True, serialized=True),
+            fr.make_frame(11, "x", bufs[1:4], serialized=True, reply=True,
+                          budget_us=1234),
+            fr.make_frame(12, "x", bufs[2:6], serialized=True)]
+
+
+def suite_payloads():
+    """(label, endpoint rows) of the suite's two payloads on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.tfgrpc_bench import BenchConfig
+    from repro_torch.core import channels as ch
+    from repro_torch.core.payload import from_arch, generate_spec
+    mesh = ch.make_net_mesh(ROWS, device="cuda")
+    return [("default", ch.device_payload(mesh, generate_spec(BenchConfig()))),
+            ("qwen3-8b", ch.device_payload(mesh, from_arch(
+                get_config(ARCH))))]
+
+
+def phase_pack(name: str) -> list:
+    """K1 / K2 against their plain versions (bytes equal), then their
+    times at the suite's two row shapes; returns their kernel entries."""
+    import numpy as np
+
+    from repro_torch.core import serialization
+    from repro_torch.kernels.payload_pack import (pack, pack_plain, unpack,
+                                                  unpack_plain)
+    from repro_torch.rpc import framing as fr
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rows(sizes, r):
+        return [torch.randint(0, 256, (r, s), generator=gen, device="cuda",
+                              dtype=torch.uint8) for s in sizes]
+
+    def diff(a, b):
+        return (a.int() - b.int()).abs().max().item() if a.numel() else 0
+
+    def check(label, bufs, pad):
+        sizes = [b.shape[-1] for b in bufs]
+        padded = [s + (-s) % 128 for s in sizes] if pad else sizes
+        packed, _ = pack(bufs, pad=pad)
+        outs = unpack(packed, sizes, pad=pad)
+        torch.cuda.synchronize()
+        e1 = diff(packed, pack_plain(bufs, padded))
+        e2 = max(max(diff(a, b), diff(a, c)) for a, b, c in zip(
+            outs, unpack_plain(packed, sizes, padded), bufs))
+        print(f"[pack] {label}: {len(bufs)} buffers x {bufs[0].shape[0]} "
+              f"rows, {packed.shape[-1]} B/row, pad={pad}: pack "
+              f"max_abs_err {e1}, unpack max_abs_err {e2} (tolerance 0) "
+              f"{'ok' if e1 == e2 == 0 else 'FAIL'}")
+        if e1 or e2:
+            raise AssertionError(f"payload_pack disagrees with plain on "
+                                 f"{label}")
+        return max(e1, e2)
+
+    err = check("reference aligned sizes", rows(PP_ALIGNED, 1), True)
+    rng = np.random.default_rng(0)
+    for i in range(8):         # tests/test_kernels.py's property sizes
+        sizes = rng.integers(1, 4097, rng.integers(1, 9)).tolist()
+        err = max(err, check(f"reference property sizes {i}",
+                             rows(sizes, 1), True))
+    bufs = rows(PP_UNALIGNED, 4)
+    err = max(err, check("unaligned serialization sizes", bufs, False))
+    packed, meta = serialization.pack(bufs)
+    if not (torch.equal(packed, torch.cat(bufs, -1)) and all(
+            torch.equal(a, b)
+            for a, b in zip(serialization.unpack(packed, meta), bufs))):
+        raise AssertionError("serialization on the card is not the "
+                             "concatenation")
+    payloads = suite_payloads()
+    for label, bufs in payloads:
+        err = max(err, check(f"{label} payload", bufs, False))
+        err = max(err, check(f"{label} payload", bufs, True))
+    for frame in _frames():
+        kw, nw = (fr.encode(frame, backend=b) for b in ("kernel", "numpy"))
+        for wire in (kw, nw):
+            back = fr.decode(wire, backend="kernel")
+            if not (len(kw) == len(nw) and all(
+                    np.array_equal(a, b) for a, b in zip(kw, nw))
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(back.bufs, frame.bufs))):
+                raise AssertionError(f"framing backend='kernel' differs "
+                                     f"from numpy on frame {frame.call_id}")
+    print(f"[pack] framing backend='kernel' wire bytes equal "
+          f"backend='numpy' both ways on {len(_frames())} frames")
+
+    entries = {}
+    for label, bufs in payloads:
+        sizes = [b.shape[-1] for b in bufs]
+        packed, _ = pack(bufs, pad=False)
+        nbytes = 2 * packed.numel()            # read once, written once
+        bound = nbytes / HBM_BPS * 1e3
+        t = {"payload_pack": (
+            gpu_ms(lambda: pack(bufs, pad=False)),
+            gpu_ms(lambda: pack_plain(bufs, sizes)),
+            gpu_ms(lambda: torch.cat(bufs, dim=-1))),
+            "payload_unpack": (
+            gpu_ms(lambda: unpack(packed, sizes, pad=False)),
+            gpu_ms(lambda: unpack_plain(packed, sizes, sizes)),
+            gpu_ms(lambda: [p.contiguous()
+                            for p in torch.split(packed, sizes, -1)]))}
+        shape = f"{ROWS} x {packed.shape[-1]} B ({label} payload)"
+        for k, (ms, plain_ms, lib_ms) in t.items():
+            print(f"[pack] {k} {shape} on {name}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+                  f"{HBM_BPS / 1e12} TB/s)")
+            entries.setdefault(k, {})[label] = {
+                "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound}
+        del packed
+    del payloads
+    torch.cuda.empty_cache()
+    out = []
+    for k, line in (("payload_pack", 60), ("payload_unpack", 93)):
+        main = entries[k]["qwen3-8b"]
+        out.append({"name": k, "route": "cuda",
+                    "source": "src/repro_torch/csrc/payload_pack.cu",
+                    "replaces": f"src/repro/kernels/payload_pack/"
+                                f"payload_pack.py:{line}",
+                    "max_abs_err": err, **main, "bound_by": "bytes",
+                    "default_payload": entries[k]["default"]})
+    return out
+
+
+def phase_suite(name: str) -> dict:
+    """The main path of K1/K2: the paper's three families and
+    fully_connected through the bench CLI, each with the launch counts
+    set to 0 just before it and read just after; returns the launches
+    summed over the phase."""
+    from repro_torch.kernels.payload_pack import ops as pp
+    from repro_torch.launch import bench_comm
+    runs = [(fam, extra + payload + ["--mode", mode])
+            for payload in ([], ["--arch", ARCH])
+            for fam, extra in SUITE
+            for mode in ("non_serialized", "serialized")]
+    runs += [("fully_connected", ["--transport", "collective",
+                                  "--num-workers", "4", "--mode", mode])
+             for mode in ("non_serialized", "serialized")]
+    total = {"payload_pack": 0, "payload_unpack": 0}
+    for fam, args in runs:
+        pp.pack.launches = pp.unpack.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rows = bench_comm.main(["--benchmark", fam] + args + SUITE_TIMES)
+        k1, k2 = pp.pack.launches, pp.unpack.launches
+        total["payload_pack"] += k1
+        total["payload_unpack"] += k2
+        row = rows[0]
+        mode = args[args.index("--mode") + 1]
+        serialized = mode == "serialized"
+        label = f"{fam} {mode}{' --arch ' + ARCH if '--arch' in args else ''}"
+        print(f"[suite] {label}: {row['metric']} = {row['value']:.6g}, "
+              f"mean {row['mean_us']:.1f} us over {row['n_iters']} iters, "
+              f"pack launches {k1}, unpack launches {k2} on {name}")
+        if "device         : " + torch.cuda.get_device_name() not in \
+                log.getvalue():
+            raise AssertionError(f"{label}: the run did not name the card")
+        if not row["value"] > 0:
+            raise AssertionError(f"{label}: {row['metric']} = "
+                                 f"{row['value']}")
+        if not serialized and (k1 or k2):
+            raise AssertionError(f"{label}: non-serialized run launched "
+                                 f"pack {k1} / unpack {k2} times")
+        if serialized:
+            want_k2 = 0 if fam == "p2p_bandwidth" else k1
+            if k1 < row["n_iters"] or k2 != want_k2:
+                raise AssertionError(f"{label}: pack {k1}, unpack {k2} "
+                                     f"launches for {row['n_iters']} "
+                                     f"timed iterations")
+    return total
+
+
+def phase_chain(name: str) -> None:
+    """Channels on the card equal the same channels on CPU rows, byte
+    for byte, then the committed modeled baseline checks clean."""
+    from repro_torch.core import channels as ch
+    from repro_torch.launch import bench_comm
+    n, sizes = 4, (10, 300, 1024, 5000)
+    gen = torch.Generator().manual_seed(1)
+    host = [torch.randint(0, 255, (n, s), generator=gen, dtype=torch.uint8)
+            for s in sizes]
+    cases = {"echo": ("p2p_echo_fn", (), {}),
+             "send": ("p2p_send_fn", (), {}),
+             "ps_1x3": ("ps_round_fn", (1, 3), {}),
+             "fc_4": ("fully_connected_fn", (4,), {}),
+             "ring_4x2": ("ring_fn", (4,), {"n_chunks": 2}),
+             "incast_3x2": ("permute_rounds_fn",
+                            (ch.incast_schedule(3, n_chunks=2),), {})}
+    checked = 0
+    for label, (fname, args, kw) in cases.items():
+        for ser in (False, True):
+            outs = []
+            for device in ("cuda", "cpu"):
+                mesh = ch.make_net_mesh(n, device=device)
+                fn = getattr(ch, fname)(mesh, len(host), *args,
+                                        serialized=ser, **kw)
+                outs.append([o.cpu() for o in fn(*[h.to(device)
+                                                   for h in host])])
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"{label} serialized={ser}: card and "
+                                     f"CPU rows differ")
+            checked += 1
+    outs = [[o.cpu() for o in ch.fsdp_pull_push_fn(
+        ch.make_net_mesh(n, device=d), len(host))(*[h.to(d) for h in host])]
+        for d in ("cuda", "cpu")]
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("fsdp_pull_push: card and CPU rows differ")
+    print(f"[chain] {checked + 1} channel runs: card rows equal CPU rows "
+          f"byte for byte on {name}")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        bench_comm.main(["--check-baseline",
+                         str(ROOT / "benchmarks" / "BENCH_fabric.json")])
+    print(f"[chain] {log.getvalue().strip()}")
 
 
 def phase_serve(name: str) -> int:
@@ -381,11 +664,16 @@ def main() -> int:
           f"{torch.version.cuda}")
     phase_build(name)
     kernel = phase_kernel(name)
+    packs = phase_pack(name)
     kernel["launches"] = phase_serve(name)
     phase_e2e(name)
+    launches = phase_suite(name)
+    for entry in packs:
+        entry["launches"] = launches[entry["name"]]
+    phase_chain(name)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(name)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + packs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 Mirrors ``repro``'s layout: the reference for ``repro_torch/x/y.py`` is
 ``repro/x/y.py``. Imports ``torch`` and numpy, never ``jax`` and nothing
-of ``repro``; the framework-free modules it needs (configs, payload and
-netmodel, the rpc fabric, the serve scheduler) are kept as copies here.
+of ``repro``; the framework-free modules it needs (configs, payload,
+netmodel and resource monitor, the rpc fabric, the serve scheduler, the
+fabric trainer) are kept as copies here.
 Hand-written CUDA kernels live in ``csrc/`` and are built on first use
 (``kernels/_build.py``).
 """

@@ -1,2 +1,2 @@
-"""Entry points: step functions (``steps``) and the serve CLI
-(``serve``)."""
+"""Entry points: step functions (``steps``), the serve CLI (``serve``)
+and the TF-gRPC-Bench CLI (``bench_comm``)."""

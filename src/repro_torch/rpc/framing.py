@@ -417,12 +417,6 @@ def _decode_descriptors(head: Frame, desc_msg: np.ndarray
     return bufs
 
 
-_KERNEL_BACKEND_MISSING = (
-    "framing backend='kernel' runs the payload_pack pack/unpack kernels, "
-    "which are not ported to Hopper yet (ROADMAP.md, Queue 2: K1 and K2); "
-    "use backend='numpy', which gives byte-identical wire messages")
-
-
 def encode(frame: Frame, *, backend: str = "numpy") -> List[np.ndarray]:
     """Frame -> wire messages (list of uint8 arrays).
 
@@ -444,7 +438,10 @@ def encode(frame: Frame, *, backend: str = "numpy") -> List[np.ndarray]:
     # the pack kernel wants non-empty operands; zero-size buffers (legal
     # in stream chunks) take the byte-identical numpy layout instead
     if backend == "kernel" and all(p.size > 0 for p in parts):
-        raise NotImplementedError(_KERNEL_BACKEND_MISSING)
+        from repro_torch.kernels.payload_pack import pack as kpack, to_card
+        packed, _ = kpack(to_card(parts))
+        # kernel output is already the lane-padded concatenation
+        return [packed.cpu().numpy()]
     return [_pack_numpy(parts)]
 
 
@@ -465,7 +462,8 @@ def decode(messages: List[np.ndarray], *, backend: str = "numpy") -> Frame:
     wire = messages[0]
     sizes = [hdr_len] + list(head.sizes)
     if backend == "kernel" and all(s > 0 for s in sizes):
-        raise NotImplementedError(_KERNEL_BACKEND_MISSING)
+        from repro_torch.kernels.payload_pack import to_card, unpack as kunpack
+        parts = [p.cpu().numpy() for p in kunpack(to_card([wire])[0], sizes)]
     else:
         parts = _unpack_numpy(wire, sizes)
     return replace(head, bufs=parts[1:])

@@ -154,19 +154,13 @@ def make_transport(kind: str, n_endpoints: int = None, *,
         if mesh is None or spec is None:
             raise ValueError("collective transport needs mesh= and "
                              "spec= (a device mesh + PayloadSpec)")
-        collective_transport_missing()
+        from repro_torch.rpc.collective import CollectiveTransport
+        return CollectiveTransport \
+            (mesh, spec, n_endpoints=n_endpoints or 0,
+             **kw)  # split: see LoopbackTransport
     raise ValueError(f"unknown transport kind {kind!r}; choose from "
                      f"('loopback', 'simulated', 'cluster', "
                      f"'collective', 'fault')")
-
-
-def collective_transport_missing(*args, **kwargs):
-    """The collective transport lowers flights onto device channels,
-    which are not ported yet."""
-    raise NotImplementedError(
-        "CollectiveTransport lowers flights onto the ppermute channels of "
-        "core/channels.py, which are not ported yet (ROADMAP.md, Queue 1: "
-        "core/channels.py and rpc/collective.py)")
 
 
 class FaultInjectionTransport(Transport):

@@ -23,66 +23,42 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 # repro modules the port keeps as copies (import prefix rewritten only)
 COPIED = sorted(
     [p.relative_to(REF).as_posix() for p in (REF / "configs").glob("*.py")]
-    + ["core/payload.py", "core/netmodel.py", "serve/scheduler.py"]
+    + ["core/payload.py", "core/netmodel.py", "core/resource.py",
+       "serve/scheduler.py", "train/fabric_train.py"]
     + [p.relative_to(REF).as_posix() for p in (REF / "rpc").glob("*.py")
        if p.name != "collective.py"])
 
 # Differences in meaning, as (text in the port, text in repro), the
 # port's prefix already rewritten back to repro.: framing's kernel backend
-# and the collective transport raise (their kernels and channels are not
-# ported), and the fabric drops the two deprecated register_* wrappers,
-# whose names the grep gates of tests/test_service_api.py forbid outside
-# src/repro/rpc/. Those gates are also why the copies split a few lines
-# (``Name \`` + ``(args)``), which leaves the syntax tree unchanged, so
-# copies are compared as syntax trees.
-KERNEL_MISSING = "        raise NotImplementedError(_KERNEL_BACKEND_MISSING)\n"
-COLLECTIVE_MISSING = '''def collective_transport_missing(*args, **kwargs):
-    """The collective transport lowers flights onto device channels,
-    which are not ported yet."""
-    raise NotImplementedError(
-        "CollectiveTransport lowers flights onto the ppermute channels of "
-        "core/channels.py, which are not ported yet (ROADMAP.md, Queue 1: "
-        "core/channels.py and rpc/collective.py)")
-
-
-'''
+# runs the port's CUDA pack/unpack kernels on torch tensors, the lazy
+# collective transport names torch, and the fabric drops the two
+# deprecated register_* wrappers, whose names the grep gates of
+# tests/test_service_api.py forbid outside src/repro/rpc/. Those gates
+# are also why the copies split a few lines (``Name \`` + ``(args)``),
+# which leaves the syntax tree unchanged, so copies are compared as
+# syntax trees.
 DIFFERENCES = {
     "rpc/framing.py": [
-        ('''_KERNEL_BACKEND_MISSING = (
-    "framing backend='kernel' runs the payload_pack pack/unpack kernels, "
-    "which are not ported to Hopper yet (ROADMAP.md, Queue 2: K1 and K2); "
-    "use backend='numpy', which gives byte-identical wire messages")
-
-
-''', ""),
-        (KERNEL_MISSING, '''        from repro.kernels.payload_pack import pack as kpack
+        ("""        from repro.kernels.payload_pack import pack as kpack, to_card
+        packed, _ = kpack(to_card(parts))
+        # kernel output is already the lane-padded concatenation
+        return [packed.cpu().numpy()]
+""", """        from repro.kernels.payload_pack import pack as kpack
         import jax.numpy as jnp
         packed, _ = kpack([jnp.asarray(b) for b in parts])
         # kernel output is already the lane-padded concatenation
         return [np.asarray(packed)]
-'''),
-        (KERNEL_MISSING, '''        from repro.kernels.payload_pack import unpack as kunpack
+"""),
+        ("""        from repro.kernels.payload_pack import to_card, unpack as kunpack
+        parts = [p.cpu().numpy() for p in kunpack(to_card([wire])[0], sizes)]
+""", """        from repro.kernels.payload_pack import unpack as kunpack
         import jax.numpy as jnp
         parts = [np.asarray(p) for p in kunpack(jnp.asarray(wire), sizes)]
-'''),
+"""),
     ],
     "rpc/__init__.py": [
-        ("                                 collective_transport_missing,\n",
-         ""),
-        ('''#: raises: the collective transport is not ported yet
-CollectiveTransport = collective_transport_missing
-''', '''def CollectiveTransport(*args, **kwargs):
-    """Lazy import: the collective transport pulls in jax/channels."""
-    from repro.rpc.collective import CollectiveTransport as _CT
-    return _CT(*args, **kwargs)
-'''),
-    ],
-    "rpc/transport.py": [
-        (COLLECTIVE_MISSING, ""),
-        ("        collective_transport_missing()\n", '''        from repro.rpc.collective import CollectiveTransport
-        return CollectiveTransport(mesh, spec,
-                                   n_endpoints=n_endpoints or 0, **kw)
-'''),
+        ("the collective transport pulls in torch/channels",
+         "the collective transport pulls in jax/channels"),
     ],
     "rpc/fabric.py": [
         ("    def abort_call(", '''    def register_server_stream(self, name: str, handler: Callable) -> None:
@@ -175,17 +151,37 @@ def test_framing_wire_bytes_match_reference():
             np.testing.assert_array_equal(a, b)
 
 
-def test_missing_pieces_raise_naming_the_roadmap():
+def test_framing_kernel_backend_needs_a_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frame = port_framing.make_frame(1, "m", [np.ones(128, np.uint8)],
                                     serialized=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="CUDA card"):
         port_framing.encode(frame, backend="kernel")
     wire = port_framing.encode(frame)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="CUDA card"):
         port_framing.decode(wire, backend="kernel")
-    from repro_torch import rpc
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rpc.CollectiveTransport()
+
+
+def test_framing_kernel_backend_keeps_zero_size_frames_on_numpy(
+        monkeypatch):
+    # as in the reference, a serialized frame with a zero-size buffer
+    # takes the byte-identical numpy layout, so it needs no card
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seen = 0
+    for pf, rf in zip(_frames(port_framing), _frames(ref_framing)):
+        if not pf.serialized or all(b.size for b in pf.bufs):
+            continue
+        seen += 1
+        pw = port_framing.encode(pf, backend="kernel")
+        rw = ref_framing.encode(rf, backend="numpy")
+        for x, y in zip(pw, rw):
+            np.testing.assert_array_equal(x, y)
+        back = port_framing.decode(pw, backend="kernel")
+        for x, y in zip(back.bufs, rf.bufs):
+            np.testing.assert_array_equal(x, y)
+    assert seen == 2
 
 
 def test_every_port_module_imports():
