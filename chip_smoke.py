@@ -19,26 +19,38 @@ Phases (any failure raises, and the script exits non-zero):
    and framing's ``backend="kernel"`` against ``backend="numpy"``; then
    kernel / plain / library (``torch.cat``, ``split``) times at both row
    shapes;
-4. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
+4. the RWKV-6 WKV scan vs plain: the kernel against
+   ``rwkv6_scan_plain`` and the sequential ``rwkv6_ref`` on the
+   reference's kernel-test cases and under strong decay (atol/rtol
+   1e-4, outputs finite), and at the RWKV-6 1.6B prefill shape, then
+   kernel / plain times there;
+5. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
    through the port's serve entry point, ``--batch 4 --prompt-len 512
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
    ``--unary`` and with ``--no-rpc``. Greedy tokens must agree across the
-   three, and the kernel must have launched 36 times per prefill;
-5. end to end, kernel vs plain: last-position logits of the same
+   three, and the flash kernel must have launched 36 times per prefill;
+6. end to end, kernel vs plain: last-position logits of the same
    prompts with the flash kernel on and off (bf16, Qwen3-8B), two
    controls (the kernel with a window that drops keys, and with the
    causal mask off) that the bound must catch, and a reduced model in
    fp32;
-6. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
+7. serve RWKV-6 1.6B at full width (24 layers, random weights from seed
+   0) the same three ways: greedy tokens must agree, and the WKV kernel
+   must have launched 24 times per prefill;
+8. end to end for RWKV-6, WKV kernel vs plain chunked path: bf16
+   logits within a bound that two wrong WKVs patched in (the state reset
+   at every chunk boundary; cum in place of cum_{t-1}) must exceed, and
+   a reduced model in fp32;
+9. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
    p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
    default payload and with ``--arch qwen3-8b``, and fully_connected on
    the collective transport. Serialized runs must launch the pack
    kernel (and unpack, where the family unpacks), non-serialized runs
    neither;
-7. the channels on the card against the same channels on CPU rows,
-   byte for byte (the CPU tests hold those equal to the JAX package),
-   and ``--check-baseline benchmarks/BENCH_fabric.json``;
-8. a JSON line of kernel numbers, then the result line.
+10. the channels on the card against the same channels on CPU rows,
+    byte for byte (the CPU tests hold those equal to the JAX package),
+    and ``--check-baseline benchmarks/BENCH_fabric.json``;
+11. a JSON line of kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -96,7 +108,28 @@ E2E_CONTROLS = {"window S - 64": {"sliding_window": PROMPT_LEN - 64},
 # The reduced model in fp32: the kernel and the plain path are both fp32
 # throughout, so they differ only in summation order.
 E2E_FP32_TOL = 1e-4
-KERNEL_SOURCES = ("flash_attention", "payload_pack")
+KERNEL_SOURCES = ("flash_attention", "payload_pack", "rwkv6_scan")
+# RWKV-6: the served model, its WKV kernel-test cases (tests/test_kernels.py:
+# BH, S, hs, chunk, with_u) at the reference's 1e-4, and the prefill shape
+# (batch x 32 heads, prompt, head size 64, the time mix's chunk 16)
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_SERVE_ARGS = ["--arch", RWKV_ARCH] + SERVE_ARGS[2:]
+WKV_CASES = [(4, 128, 64, 32, True), (2, 64, 32, 16, False),
+             (3, 96, 64, 32, True), (1, 250, 64, 64, True)]
+WKV_TOL = 1e-4
+WKV_MAIN = (BATCH * 32, PROMPT_LEN, 64, 16)
+FP32_FLOPS = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
+# End-to-end RWKV-6 logits, WKV kernel vs the plain chunked path, bf16, as
+# max|diff| / max|plain|. Both compute the WKV in fp32 and differ only in
+# summation order (about 1e-6 of y); the difference reaches the logits
+# where it flips a bf16 rounding of the time mix's output or of the bf16
+# residual stream, and 24 recurrent layers with squared-relu channel mixes
+# carry those flips further than Qwen3-8B's 36 attention layers do: a
+# sound run reads 0.0663 (where Qwen3-8B reads 0.0171). The wrong WKVs read
+# 0.100 (cum in place of cum_{t-1}: a decay of 0.87-0.9975 a step applied
+# once too often) and 1.41 (the state reset at every chunk). The limit
+# lies between; the script fails if a control does not exceed it.
+RWKV_E2E_REL_TOL = 8.5e-2
 # payload pack / unpack: the reference's kernel-test sizes (aligned, and
 # lists drawn as its hypothesis property draws them), the unaligned
 # sizes serialization hands the kernels, and the endpoint rows of the
@@ -247,6 +280,104 @@ def phase_kernel(name: str) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sdpa_ms}
+
+
+def wkv_bound(BH: int, S: int, hs: int, chunk: int):
+    """(ms, what bounds it) of one K4 launch: r, k, v, log_w and s0 read
+    once, y and the final state written once, over HBM bandwidth, against
+    the fp32 operations of the chunked form over the fp32 rate: per chunk
+    the inclusive cumsum, the Lc(Lc-1)/2 causal pairs of A (two
+    subtractions, an exp, two multiplies and an add per channel), the
+    decay factors of r and k (a subtraction, an exp and a multiply each),
+    A v over those pairs, r S, the state's decay and k^T v."""
+    nbytes = 4 * (5 * BH * S * hs + 2 * BH * hs * hs)
+    pairs = chunk * (chunk - 1) // 2
+    per_chunk = (chunk * hs + 6 * pairs * hs + 6 * chunk * hs
+                 + 2 * pairs * hs + 2 * chunk * hs * hs
+                 + hs + hs * hs + 2 * chunk * hs * hs)
+    flops = BH * (S // chunk) * per_chunk
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def phase_wkv(name: str) -> dict:
+    """K4 against ``rwkv6_scan_plain`` and the sequential ``rwkv6_ref``
+    (atol/rtol 1e-4), then its time at the RWKV-6 prefill shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_ref, rwkv6_scan,
+                                                rwkv6_scan_plain)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(BH, S, hs, with_u):
+        return (randn(BH, S, hs), randn(BH, S, hs) * 0.5, randn(BH, S, hs),
+                -torch.exp(randn(BH, S, hs) - 1.0), randn(BH, hs, hs) * 0.1,
+                randn(BH, hs) * 0.5 if with_u else None)
+
+    def plain(r, k, v, lw, s0, u, chunk):
+        """The wrapper's padding and bonus term around the plain scan."""
+        S = r.shape[1]
+        chunk = min(chunk, max(8, S))
+        pad = (-S) % chunk
+        y, sT = rwkv6_scan_plain(*(F.pad(t, (0, 0, 0, pad))
+                                   for t in (r, k, v, lw)), s0, chunk=chunk)
+        y = y[:, :S]
+        if u is not None:
+            y = y + (r * k * u[:, None, :]).sum(-1, keepdim=True) * v
+        return y, sT
+
+    def compare(label, args, chunk, oracles):
+        y, sT = rwkv6_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        err = 0.0
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
+        ok = finite
+        for oname, (yo, so) in oracles.items():
+            e = max((y - yo).abs().max().item(), (sT - so).abs().max().item())
+            good = (torch.allclose(y, yo, atol=WKV_TOL, rtol=WKV_TOL)
+                    and torch.allclose(sT, so, atol=WKV_TOL, rtol=WKV_TOL))
+            print(f"[wkv] {label} vs {oname}: max_abs_err={e:.3g} "
+                  f"tol={WKV_TOL} finite={finite} "
+                  f"{'ok' if good and finite else 'FAIL'}")
+            err, ok = max(err, e), ok and good
+        if not ok:
+            raise AssertionError(f"rwkv6_scan kernel disagrees on {label}")
+        return err
+
+    for BH, S, hs, chunk, with_u in WKV_CASES:
+        args = inputs(BH, S, hs, with_u)
+        compare(f"BH={BH} S={S} hs={hs} chunk={chunk} u={with_u}", args,
+                chunk, {"plain": plain(*args, chunk),
+                        "rwkv6_ref": rwkv6_ref(*args)})
+    ones = torch.ones(2, 64, 32, device="cuda")
+    strong = (ones, ones, ones, torch.full_like(ones, -30.0),
+              torch.zeros(2, 32, 32, device="cuda"), None)
+    compare("strong decay log_w=-30 chunk=16", strong, 16,
+            {"plain": plain(*strong, 16)})
+    BH, S, hs, chunk = WKV_MAIN
+    args = inputs(BH, S, hs, True)
+    err = compare(f"RWKV-6 1.6B prefill BH={BH} S={S} hs={hs} "
+                  f"chunk={chunk} u=True", args, chunk,
+                  {"plain": plain(*args, chunk)})
+
+    r, k, v, lw, s0, _ = args
+    ms = gpu_ms(lambda: rwkv6_scan(r, k, v, lw, s0, chunk=chunk))
+    plain_ms = gpu_ms(lambda: rwkv6_scan_plain(r, k, v, lw, s0, chunk=chunk))
+    bound_ms, bound_by, nbytes, flops = wkv_bound(BH, S, hs, chunk)
+    print(f"[wkv] RWKV-6 1.6B prefill ({BH}, {S}, {hs}) fp32 chunk {chunk} "
+          f"on {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library none, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes} B, {flops / 1e9:.3f} GFLOP)")
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:65",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _frames():
@@ -478,17 +609,26 @@ def phase_chain(name: str) -> None:
     print(f"[chain] {log.getvalue().strip()}")
 
 
-def phase_serve(name: str) -> int:
-    """The main path; returns the kernel's launches during it."""
+def phase_serve(name: str, args: list, kernel, layers: int) -> int:
+    """One main path: the serve CLI with ``args`` over streaming RPC,
+    unary RPC and direct calls, with every kernel's count set to 0 just
+    before and read just after; returns ``kernel``'s launches, which
+    must be ``layers`` per prefill."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.launch import serve
+    arch = args[args.index("--arch") + 1]
+    vocab = get_config(arch).model.vocab_size
     modes = (("rpc/stream", []), ("rpc/unary", ["--unary"]),
              ("direct", ["--no-rpc"]))
     outputs, prefills = {}, 0
-    flash_attention.launches = 0
+    counted = (flash_attention, rwkv6_scan)
+    for fn in counted:
+        fn.launches = 0
     for label, extra in modes:
         torch.cuda.reset_peak_memory_stats()
-        res = serve.main(SERVE_ARGS + extra)
+        res = serve.main(args + extra)
         eng = res["engine"]
         ops = eng.op_seconds
         n_pre = len(ops["prefill"])
@@ -498,7 +638,8 @@ def phase_serve(name: str) -> int:
                                  "prefills would not be counted")
         total_s = sum(res["seconds"])
         toks = sum(o.size for o in res["outputs"])
-        print(f"[serve] {label}: {1e3 * total_s / REQUESTS:.1f} ms/request, "
+        print(f"[serve] {arch} {label}: "
+              f"{1e3 * total_s / REQUESTS:.1f} ms/request, "
               f"prefill {1e3 * sum(ops['prefill']) / n_pre:.1f} ms, "
               f"decode {1e3 * sum(ops['decode']) / len(ops['decode']):.2f} "
               f"ms/token-step, {toks / total_s:.1f} tok/s, "
@@ -509,25 +650,27 @@ def phase_serve(name: str) -> int:
         del res, eng, ops
         gc.collect()      # the engine and its schedulers refer to each other
         torch.cuda.empty_cache()
-    launches = flash_attention.launches
+    launches = {fn.__name__: fn.launches for fn in counted}
     for label, outs in outputs.items():
         if len(outs) != REQUESTS:
             raise AssertionError(f"{label}: {len(outs)} replies")
         for out in outs:
             if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 \
-                    or out.max() >= 151936:
+                    or out.max() >= vocab:
                 raise AssertionError(f"{label}: bad tokens {out.shape}")
         for a, b in zip(outs, outputs["direct"]):
             if not (a == b).all():
                 raise AssertionError(f"{label} tokens differ from direct")
-    print(f"[serve] greedy tokens identical across stream / unary / "
+    print(f"[serve] {arch} greedy tokens identical across stream / unary / "
           f"direct; request 0 row 0: {outputs['direct'][0][0][:8].tolist()}")
-    if launches != 36 * prefills:
-        raise AssertionError(f"flash kernel launched {launches} times for "
-                             f"{prefills} prefills of 36 layers")
-    print(f"[serve] flash kernel launches {launches} = 36 x {prefills} "
-          f"prefills")
-    return launches
+    if launches[kernel.__name__] != layers * prefills or any(
+            n for k, n in launches.items() if k != kernel.__name__):
+        raise AssertionError(f"launches {launches} for {prefills} prefills "
+                             f"of {layers} layers")
+    print(f"[serve] {arch} {kernel.__name__} launches "
+          f"{launches[kernel.__name__]} = {layers} x {prefills} prefills "
+          f"(all launches: {launches})")
+    return launches[kernel.__name__]
 
 
 def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
@@ -567,23 +710,95 @@ def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
                 and a.self_device_time_total > 0]
         busy_ms = sum(a.self_device_time_total for a in avgs) / 1e3
         if not avgs:
-            print(f"[profile] {label}: wall {wall_ms:.1f} ms; device "
+            print(f"[profile] {acfg.model.name} {label}: wall "
+                  f"{wall_ms:.1f} ms; device "
                   f"time not measured (the profiler saw no CUDA kernels)")
             continue
         top = sorted(avgs, key=lambda a: -a.self_device_time_total)[:4]
-        print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+        print(f"[profile] {acfg.model.name} {label}: wall {wall_ms:.1f} ms, "
+              f"device busy "
               f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), top: "
               + "; ".join(f"{a.key[:48]} {a.self_device_time_total / 1e3:.2f}"
                           f" ms x{a.count}" for a in top)
               + f" on {name}")
 
 
-def phase_e2e(name: str) -> None:
-    import dataclasses
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
 
+
+def rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| (Euclidean norms)."""
+    return ((a - b).norm() / b.norm()).item()
+
+
+def e2e_check(name: str, arch: str, last_logits, controls: dict,
+              bound: float) -> None:
+    """End to end, kernel vs plain: last-position logits of the CLI's
+    first prompts at full width in bf16 (``last_logits(acfg, params,
+    tokens, kernel)``) within ``bound`` of max|plain|; each control (label
+    -> function of (acfg, params, tokens) giving a deliberately wrong
+    path's logits) must exceed it. Then the reduced model in fp32."""
     import numpy as np
 
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(0)       # the CLI's first prompts
+    acfg, params = serve.init_model(arch, reduced=False, device="cuda")
+    tokens = torch.as_tensor(rng.integers(0, acfg.model.vocab_size,
+                                          (BATCH, PROMPT_LEN),
+                                          dtype=np.int32), device="cuda")
+    kern = last_logits(acfg, params, tokens, True)
+    plain = last_logits(acfg, params, tokens, False)
+    readings = {}
+    for label, wrong_logits in controls.items():
+        wrong = wrong_logits(acfg, params, tokens)
+        readings[label] = rel(wrong, plain), rms(wrong, plain)
+    profile_steps(name, acfg, params, tokens)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    what = acfg.model.name
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    sound = rel(kern, plain)
+    cos = torch.nn.functional.cosine_similarity(kern, plain, dim=-1)
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"[e2e] {what} bf16 last-position logits, kernel vs plain: "
+          f"max|diff|/max|plain| = {sound:.4g} (bound {bound}; "
+          f"|diff|/|plain| {rms(kern, plain):.4g}), min cosine "
+          f"{cos.min().item():.6f}, argmax agreement {agree:.2f} on {name}")
+    for label, (r, r2) in readings.items():
+        print(f"[e2e] control ({what}), {label}, vs plain: "
+              f"max|diff|/max|plain| = {r:.4g} (|diff|/|plain| {r2:.4g}) "
+              f"({'caught' if r > bound else 'NOT caught'})")
+    if sound > bound:
+        raise AssertionError(f"{what}: end-to-end logits differ by "
+                             f"{sound:.3g}")
+    missed = [label for label, (r, _) in readings.items() if r <= bound]
+    if missed:
+        raise AssertionError(f"{what}: the end-to-end bound {bound} does "
+                             f"not catch the controls {missed}")
+
+    acfg, params = serve.init_model(arch, reduced=True, device="cuda")
+    small = torch.as_tensor(rng.integers(0, acfg.model.vocab_size, (2, 40),
+                                         dtype=np.int32), device="cuda")
+    kern = last_logits(acfg, params, small, True)
+    plain = last_logits(acfg, params, small, False)
+    err = (kern - plain).abs().max().item()
+    print(f"[e2e] reduced {what} fp32 (prompt 40), kernel vs plain: "
+          f"max_abs_err {err:.3g} (bound {E2E_FP32_TOL})")
+    if not torch.allclose(kern, plain, atol=E2E_FP32_TOL,
+                          rtol=E2E_FP32_TOL):
+        raise AssertionError(f"reduced {what} logits differ by {err:.3g}")
+
+
+def phase_e2e(name: str) -> None:
+    """Qwen3-8B with the flash kernel on and off; the controls run the
+    kernel with attention options that drop or add keys."""
+    import dataclasses
+
+    from repro_torch.launch import steps
 
     def last_logits(acfg, params, tokens, flash, **attention):
         m = acfg.model
@@ -595,55 +810,72 @@ def phase_e2e(name: str) -> None:
         _, logits = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
         return logits[:, -1].float()
 
-    def prefill_both(acfg, params, tokens):
-        return (last_logits(acfg, params, tokens, True),
-                last_logits(acfg, params, tokens, False))
+    def control(kw):
+        return lambda acfg, params, tokens: last_logits(acfg, params, tokens,
+                                                        True, **kw)
+    e2e_check(name, ARCH, last_logits,
+              {f"the kernel with {label}": control(kw)
+               for label, kw in E2E_CONTROLS.items()}, E2E_REL_TOL)
 
-    def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
 
-    rng = np.random.default_rng(0)       # the CLI's first prompts
-    tokens = torch.as_tensor(rng.integers(0, 151936, (BATCH, PROMPT_LEN),
-                                          dtype=np.int32), device="cuda")
-    acfg, params = serve.init_model(ARCH, reduced=False, device="cuda")
-    kern, plain = prefill_both(acfg, params, tokens)
-    controls = {label: rel(last_logits(acfg, params, tokens, True, **kw),
-                           plain)
-                for label, kw in E2E_CONTROLS.items()}
-    profile_steps(name, acfg, params, tokens)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
-        raise AssertionError("non-finite logits")
-    sound = rel(kern, plain)
-    cos = torch.nn.functional.cosine_similarity(kern, plain, dim=-1)
-    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[e2e] Qwen3-8B bf16 last-position logits, kernel vs plain: "
-          f"max|diff|/max|plain| = {sound:.4g} (bound {E2E_REL_TOL}), "
-          f"min cosine {cos.min().item():.6f}, argmax agreement "
-          f"{agree:.2f} on {name}")
-    for label, r in controls.items():
-        print(f"[e2e] control, kernel with {label} vs plain: "
-              f"max|diff|/max|plain| = {r:.4g} "
-              f"({'caught' if r > E2E_REL_TOL else 'NOT caught'})")
-    if sound > E2E_REL_TOL:
-        raise AssertionError(f"end-to-end logits differ by {sound:.3g}")
-    missed = [label for label, r in controls.items() if r <= E2E_REL_TOL]
-    if missed:
-        raise AssertionError(f"the end-to-end bound {E2E_REL_TOL} does not "
-                             f"catch the controls {missed}")
+def _wkv_reset_each_chunk(r, k, v, log_w, s0, u=None, *, chunk=64):
+    """Control: K4 with the state reset to zero at every chunk boundary
+    (each chunk scanned as a row of its own)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    BH, S, hs = r.shape
+    n = S // chunk
 
-    acfg, params = serve.init_model(ARCH, reduced=True, device="cuda")
-    small = torch.as_tensor(rng.integers(0, acfg.model.vocab_size, (2, 40),
-                                         dtype=np.int32), device="cuda")
-    kern, plain = prefill_both(acfg, params, small)
-    err = (kern - plain).abs().max().item()
-    print(f"[e2e] reduced Qwen3-8B fp32, kernel vs plain: max_abs_err "
-          f"{err:.3g} (bound {E2E_FP32_TOL})")
-    if not torch.allclose(kern, plain, atol=E2E_FP32_TOL,
-                          rtol=E2E_FP32_TOL):
-        raise AssertionError(f"reduced model logits differ by {err:.3g}")
+    def fold(t):
+        return t.reshape(BH * n, chunk, hs)
+    y, sT = rwkv6_scan(fold(r), fold(k), fold(v), fold(log_w),
+                       s0.new_zeros(BH * n, hs, hs),
+                       None if u is None else u.repeat_interleave(n, 0),
+                       chunk=chunk)
+    return y.reshape(BH, S, hs), sT.reshape(BH, n, hs, hs)[:, -1]
+
+
+def _wkv_decay_early(r, k, v, log_w, s0, u=None, *, chunk=64):
+    """Control: K4 reading each state after its own step's decay (cum in
+    place of cum_{t-1}: r * w_t reads S_{t-1})."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return rwkv6_scan(r * torch.exp(log_w), k, v, log_w, s0, u, chunk=chunk)
+
+
+@contextlib.contextmanager
+def wkv_patched(fn):
+    """The RWKV-6 time mix calls ``fn`` in place of ``rwkv6_scan``."""
+    from repro_torch.models import ssm
+    saved = ssm.rwkv6_scan
+    ssm.rwkv6_scan = fn
+    try:
+        yield
+    finally:
+        ssm.rwkv6_scan = saved
+
+
+def phase_e2e_rwkv(name: str) -> None:
+    """RWKV-6 1.6B with the WKV kernel on and off (the plain chunked
+    path); the controls patch a wrong WKV into the time mix."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+
+    def last_logits(acfg, params, tokens, kernel):
+        cfg = acfg.replace(train=dataclasses.replace(
+            acfg.train, use_rwkv_kernel=kernel))
+        _, logits = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+        return logits[:, -1].float()
+
+    def control(fn):
+        def wrong_logits(acfg, params, tokens):
+            with wkv_patched(fn):
+                return last_logits(acfg, params, tokens, True)
+        return wrong_logits
+    e2e_check(name, RWKV_ARCH, last_logits,
+              {"the state reset at every chunk":
+               control(_wkv_reset_each_chunk),
+               "cum in place of cum_{t-1}": control(_wkv_decay_early)},
+              RWKV_E2E_REL_TOL)
 
 
 def main() -> int:
@@ -662,18 +894,23 @@ def main() -> int:
     name = card()
     print(f"[env] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     phase_build(name)
     kernel = phase_kernel(name)
+    wkv = phase_wkv(name)
     packs = phase_pack(name)
-    kernel["launches"] = phase_serve(name)
+    kernel["launches"] = phase_serve(name, SERVE_ARGS, flash_attention, 36)
     phase_e2e(name)
+    wkv["launches"] = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan, 24)
+    phase_e2e_rwkv(name)
     launches = phase_suite(name)
     for entry in packs:
         entry["launches"] = launches[entry["name"]]
     phase_chain(name)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(name)
-    print(json.dumps({"kernels": [kernel] + packs}))
+    print(json.dumps({"kernels": [kernel] + packs + [wkv]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

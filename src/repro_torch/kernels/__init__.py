@@ -5,4 +5,6 @@
   payload_pack    — pack / unpack of iovec buffers into one contiguous
                     transfer (the serialized mode), replacing the two
                     Pallas TPU kernels of the same name
+  rwkv6_scan      — chunked RWKV-6 WKV scan (prefill), replacing the
+                    Pallas TPU kernel rwkv6_scan_kernel
 """

@@ -2,14 +2,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       [--batch 4] [--prompt-len 512] [--new-tokens 32]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --reduced --device cpu
 
 The model runs on ``--device cuda`` (the default; no card is an error,
 never a silent CPU run) with the prefill attention of every layer in
-the hand-written flash kernel, or on ``--device cpu`` with its plain
-PyTorch version. Weights are random, drawn on the device from seed 0
-and cast to the compute dtype tensor by tensor.
+the hand-written flash kernel (dense models) or the prefill WKV scan of
+every layer in the hand-written RWKV-6 kernel (``rwkv6-1.6b``), or on
+``--device cpu`` with their plain PyTorch versions. Weights are random,
+drawn on the device from seed 0 and cast to the compute dtype tensor by
+tensor.
 
 Requests travel through the rpc fabric (loopback transport, serialized
 framing) by default, via the generated ``Serve`` stub's
@@ -138,14 +141,16 @@ def _serve_cluster_rounds(engine: ServeEngine, cluster, args,
 
 def init_model(arch: str, *, reduced: bool, device: str):
     """(config, params) as the CLI serves them: on ``cuda`` the flash
-    kernel is on (``use_flash_kernel``, which the reference config
-    leaves off only because Pallas TPU kernels do not lower on a CPU);
-    params are drawn on ``device`` from seed 0 in the compute dtype."""
+    and WKV kernels are on (``use_flash_kernel``, ``use_rwkv_kernel``,
+    which the reference config leaves off only because Pallas TPU
+    kernels do not lower on a CPU); params are drawn on ``device`` from
+    seed 0 in the compute dtype."""
     acfg: ArchConfig = (get_reduced_config(arch) if reduced
                         else get_config(arch))
     assert not acfg.model.is_encoder, "encoder archs do not serve decode"
     acfg = acfg.replace(train=dataclasses.replace(
-        acfg.train, use_flash_kernel=(device == "cuda")))
+        acfg.train, use_flash_kernel=(device == "cuda"),
+        use_rwkv_kernel=(device == "cuda")))
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(acfg, device=device, generator=gen,
                          dtype=dtype_of(acfg.train.compute_dtype))
@@ -204,7 +209,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "hatch)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model runs (default cuda: the GPU, "
-                         "with the flash attention kernel)")
+                         "with the flash attention / WKV kernels)")
     args = ap.parse_args(argv)
 
     if args.transport == "cluster" and args.cluster_spec is None:

@@ -1,4 +1,4 @@
-"""Unified model, single device: dense GQA transformers.
+"""Unified model, single device: dense GQA transformers and RWKV-6.
 
 The reference groups layers into *periods* and scans over stacked
 period parameters; here the parameters are one dict per layer
@@ -8,12 +8,12 @@ reference's parameters into this layout.
 
 Modes:
   train   — full-sequence forward; no state
-  prefill — full-sequence forward; returns per-layer states (KV)
+  prefill — full-sequence forward; returns per-layer states (KV / RWKV)
   decode  — single token with per-layer states
 
 Parameters are used as they are: the caller casts them to the compute
 dtype once (``cast_floats``), where the reference casts on every call.
-Mamba / RWKV layers and MoE FFNs are not ported yet.
+Mamba layers and MoE FFNs are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
                                        init_ffn, init_norm, softcap,
@@ -34,8 +35,6 @@ States = List[Params]
 _NOT_PORTED = {
     "mamba": "Mamba layers are not ported yet (ROADMAP.md, Queue 1: "
              "models/ssm.py)",
-    "rwkv": "RWKV-6 layers are not ported yet (ROADMAP.md, Queue 1: "
-            "models/ssm.py, with kernel K4 rwkv6_scan of Queue 2)",
     "moe": "MoE FFNs are not ported yet (ROADMAP.md, Queue 1: "
            "models/moe.py)",
 }
@@ -49,7 +48,7 @@ def dtype_of(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     for kind in cfg.layer_pattern:
-        if kind != "attn":
+        if kind not in ("attn", "rwkv"):
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
@@ -71,13 +70,18 @@ def cast_floats(tree, dtype: torch.dtype):
 # Init
 # =========================================================================
 
-def _init_layer(cfg: ModelConfig, dtype, *, device, generator) -> Params:
+def _init_layer(cfg: ModelConfig, li: int, dtype, *, device,
+                generator) -> Params:
+    kind = cfg.layer_pattern[li % cfg.pattern_period]
     kw = dict(device=device, generator=generator)
-    return {"norm1": init_norm(cfg, cfg.d_model, dtype, device=device),
-            "norm2": init_norm(cfg, cfg.d_model, dtype, device=device),
-            "mixer": attn_lib.init_attention(cfg, cfg.attention, dtype,
-                                             **kw),
-            "ffn": init_ffn(cfg, cfg.d_model, cfg.d_ff, dtype, **kw)}
+    p: Params = {"norm1": init_norm(cfg, cfg.d_model, dtype, device=device),
+                 "norm2": init_norm(cfg, cfg.d_model, dtype, device=device)}
+    if kind == "rwkv":   # the channel-mix lives inside the rwkv param set
+        p["mixer"] = ssm_lib.init_rwkv6(cfg, cfg.ssm, dtype, **kw)
+        return p
+    p["mixer"] = attn_lib.init_attention(cfg, cfg.attention, dtype, **kw)
+    p["ffn"] = init_ffn(cfg, cfg.d_model, cfg.d_ff, dtype, **kw)
+    return p
 
 
 def init_params(acfg: ArchConfig, *, device, generator: torch.Generator,
@@ -92,8 +96,8 @@ def init_params(acfg: ArchConfig, *, device, generator: torch.Generator,
     params: Params = {
         "embed": truncated_normal((cfg.vocab_size, cfg.d_model), 0.02,
                                   dtype, **kw),
-        "layers": [_init_layer(cfg, dtype, **kw)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_init_layer(cfg, li, dtype, **kw)
+                   for li in range(cfg.num_layers)],
         "final_norm": init_norm(cfg, cfg.d_model, dtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -109,30 +113,63 @@ def init_params(acfg: ArchConfig, *, device, generator: torch.Generator,
 def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
                  state: Optional[Params], mode: str,
                  positions: Optional[torch.Tensor],
-                 max_seq: Optional[int], use_flash: bool
+                 max_seq: Optional[int], use_flash: bool,
+                 use_rwkv_kernel: bool
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
     """One layer. Returns (x, new_state)."""
+    kind = cfg.layer_pattern[li % cfg.pattern_period]
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind == "rwkv":
+        h, new_state = _rwkv_time_mix(cfg, p, h, state, mode,
+                                      use_rwkv_kernel)
+    else:
+        h, new_state = _attention(cfg, li, p, h, state, mode, positions,
+                                  max_seq, use_flash)
+    x = x + h.to(x.dtype)
+    h2 = apply_norm(cfg, p["norm2"], x)
+    if kind == "rwkv":   # the channel mix in place of the FFN
+        h2, cm_new = ssm_lib.rwkv6_channel_mix(p["mixer"], h2, state)
+        if new_state is not None:
+            new_state["shift_cm"] = cm_new
+    else:
+        h2 = apply_ffn(cfg, p["ffn"], h2)
+    x = x + h2.to(x.dtype)
+    return x, new_state
+
+
+def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
+               state: Optional[Params], mode: str,
+               positions: Optional[torch.Tensor], max_seq: Optional[int],
+               use_flash: bool) -> Tuple[torch.Tensor, Optional[Params]]:
     window = cfg.window_at(li % cfg.pattern_period)
     att = cfg.attention
-    h = apply_norm(cfg, p["norm1"], x)
-    new_state: Optional[Params] = None
     fwd = (attn_lib.attention_forward_flash if use_flash
            else attn_lib.attention_forward)
     if mode == "decode":
         h, cache = attn_lib.attention_decode(p["mixer"], att, h,
                                              state["mixer"], window=window)
-        new_state = {"mixer": cache}
-    elif mode == "prefill":
+        return h, {"mixer": cache}
+    if mode == "prefill":
         h, kv = fwd(p["mixer"], att, h, positions, window=window,
                     causal=att.causal, return_kv=True)
-        new_state = {"mixer": _cache_from_prefill(kv, window, max_seq)}
+        return h, {"mixer": _cache_from_prefill(kv, window, max_seq)}
+    return fwd(p["mixer"], att, h, positions, window=window,
+               causal=att.causal), None
+
+
+def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                   state: Optional[Params], mode: str, use_kernel: bool
+                   ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Prefill / train: chunked (K4 with ``use_kernel``); decode: the
+    exact one-token recurrence."""
+    mixer_state = state["mixer"] if state is not None else None
+    if mode == "decode":
+        h, s = ssm_lib.rwkv6_time_mix_step(cfg, cfg.ssm, p["mixer"], h,
+                                           mixer_state)
     else:
-        h = fwd(p["mixer"], att, h, positions, window=window,
-                causal=att.causal)
-    x = x + h.to(x.dtype)
-    h2 = apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
-    x = x + h2.to(x.dtype)
-    return x, new_state
+        h, s = ssm_lib.rwkv6_time_mix(cfg, cfg.ssm, p["mixer"], h,
+                                      mixer_state, use_kernel=use_kernel)
+    return h, ({"mixer": s} if mode != "train" else None)
 
 
 def _cache_from_prefill(kv, window: Optional[int],
@@ -188,7 +225,8 @@ def forward(acfg: ArchConfig, params: Params, *,
     for li, p in enumerate(params["layers"]):
         st = states[li] if states is not None else None
         x, ns = _apply_layer(cfg, li, p, x, st, mode, positions, max_seq,
-                             acfg.train.use_flash_kernel)
+                             acfg.train.use_flash_kernel,
+                             acfg.train.use_rwkv_kernel)
         if new_states is not None:
             new_states.append(ns)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -209,12 +247,20 @@ def logits_fn(acfg: ArchConfig, params: Params,
 
 def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
                 device) -> States:
-    """Fresh per-layer states (empty KV caches)."""
+    """Fresh per-layer states: empty KV caches; zero RWKV states (fp32,
+    as the reference makes them)."""
     cfg = acfg.model
     check_supported(cfg)
     cache_dtype = dtype_of(acfg.train.compute_dtype)
-    return [{"mixer": attn_lib.init_cache(
-                cfg.attention, batch, max_seq,
-                cfg.window_at(li % cfg.pattern_period), cache_dtype,
-                device=device)}
-            for li in range(cfg.num_layers)]
+
+    def one_layer(li: int) -> Params:
+        pos = li % cfg.pattern_period
+        if cfg.layer_pattern[pos] == "rwkv":
+            s = ssm_lib.init_rwkv_state(cfg, cfg.ssm, batch, device=device)
+            return {"mixer": {"S": s["S"], "shift_tm": s["shift_tm"]},
+                    "shift_cm": s["shift_cm"]}
+        return {"mixer": attn_lib.init_cache(
+            cfg.attention, batch, max_seq, cfg.window_at(pos), cache_dtype,
+            device=device)}
+
+    return [one_layer(li) for li in range(cfg.num_layers)]

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (flash attention, payload pack / unpack)
-against their plain versions on the card
+"""The port's CUDA kernels (flash attention, payload pack / unpack, the
+RWKV-6 WKV scan) against their plain versions on the card
 (imports torch only, so it runs where JAX is not installed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -178,3 +178,87 @@ def test_pack_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="one CUDA device"):
         pack([torch.zeros(1, 8, dtype=torch.uint8, device=cuda),
               torch.zeros(1, 8, dtype=torch.uint8)])
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV scan (K4): against rwkv6_scan_plain and the sequential oracle
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
+    rwkv6_ref, rwkv6_scan_plain)
+
+# tests/test_kernels.py's cases (BH, S, hs, chunk, with_u), the other head
+# sizes and chunks the kernel is built for, and the serving shape
+WKV_CASES = [
+    (4, 128, 64, 32, True), (2, 64, 32, 16, False),
+    (3, 96, 64, 32, True), (1, 250, 64, 64, True),
+    (5, 48, 16, 16, True), (2, 100, 32, 8, False), (3, 7, 64, 64, True),
+    (128, 512, 64, 16, True),
+]
+
+
+def _wkv_inputs(cuda, BH, S, hs, with_u, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    return (randn(BH, S, hs), randn(BH, S, hs) * 0.5, randn(BH, S, hs),
+            -torch.exp(randn(BH, S, hs) - 1.0), randn(BH, hs, hs) * 0.1,
+            randn(BH, hs) * 0.5 if with_u else None)
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv_kernel_matches_plain_and_ref(cuda, case):
+    BH, S, hs, chunk, with_u = case
+    r, k, v, lw, s0, u = _wkv_inputs(cuda, BH, S, hs, with_u, S + hs)
+    before = rwkv6_scan.launches
+    y, sT = rwkv6_scan(r, k, v, lw, s0, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    c = min(chunk, max(8, S))
+    pad = (-S) % c
+    padded = [torch.nn.functional.pad(t, (0, 0, 0, pad))
+              for t in (r, k, v, lw)]
+    yp, sTp = rwkv6_scan_plain(*padded, s0, chunk=c)
+    if u is not None:
+        yp = yp[:, :S] + (r * k * u[:, None, :]).sum(-1, keepdim=True) * v
+    torch.testing.assert_close(y, yp[:, :S], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sT, sTp, atol=1e-4, rtol=1e-4)
+    if BH * S <= 1024:
+        yr, sTr = rwkv6_ref(r, k, v, lw, s0, u)
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(sT, sTr, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv_kernel_strong_decay_stays_finite(cuda):
+    BH, S, hs = 2, 64, 32
+    ones = torch.ones(BH, S, hs, device=cuda)
+    y, sT = rwkv6_scan(ones, ones, ones, torch.full_like(ones, -30.0),
+                       torch.zeros(BH, hs, hs, device=cuda), None, chunk=16)
+    assert torch.isfinite(y).all() and torch.isfinite(sT).all()
+    yp, sTp = rwkv6_scan_plain(ones, ones, ones, torch.full_like(ones, -30.0),
+                               torch.zeros(BH, hs, hs, device=cuda),
+                               chunk=16)
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sT, sTp, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
+    t = torch.zeros(2, 32, 64, device=cuda)
+    s0 = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops._launch(t.bfloat16(), t, t, t, s0, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops._launch(t.transpose(1, 2).contiguous().transpose(1, 2),
+                        t, t, t, s0, 16)
+    with pytest.raises(ValueError, match="divide"):
+        wkv_ops._launch(t, t, t, t, s0, 12)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_ops._launch(t, t, t, t, s0, 128)
+    with pytest.raises(ValueError, match="head size"):
+        x = torch.zeros(2, 32, 48, device=cuda)
+        wkv_ops._launch(x, x, x, x, torch.zeros(2, 48, 48, device=cuda), 16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv_ops._launch(t, t, t, t, s0.cpu(), 16)

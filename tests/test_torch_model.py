@@ -213,14 +213,14 @@ def test_prefill_and_decode_match_jax(jax_params, use_flash):
     check_states()
 
 
-def test_unported_layer_kinds_name_their_roadmap_item():
-    for arch, what in (("rwkv6-1.6b", "models/ssm.py"),
-                       ("mixtral-8x7b", "models/moe.py"),
-                       ("jamba-1.5-large-398b", "models/ssm.py")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            M.init_params(get_reduced_config(arch), device="cpu",
-                          generator=torch.Generator().manual_seed(0))
-        assert what in str(e.value)
+@pytest.mark.parametrize("arch,what", [
+    ("mixtral-8x7b", "models/moe.py"),
+    ("jamba-1.5-large-398b", "models/ssm.py")])
+def test_unported_layer_kinds_name_their_roadmap_item(arch, what):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+        M.init_params(get_reduced_config(arch), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    assert what in str(e.value)
 
 
 def test_cast_floats_once():

@@ -121,3 +121,87 @@ def test_cli_without_a_card_refuses_to_run(capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "no CUDA GPU" in err and "--device cpu" in err
+
+
+# ---------------------------------------------------------------------------
+# the reduced RWKV-6: recurrent states carried by the engine
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-1.6b"
+
+
+@pytest.fixture(scope="module")
+def rwkv_engines():
+    jcfg = jax_reduced(RWKV)
+    params = jax_init_params(jax.random.PRNGKey(1), jcfg)
+    scfg = dict(max_seq=40, max_new_tokens=5)
+    jeng = JaxServeEngine(NO_MESH, jcfg, params, JaxServeConfig(**scfg))
+    teng = ServeEngine(get_reduced_config(RWKV),
+                       from_jax_params(jax.tree.map(np.asarray, params)),
+                       ServeConfig(**scfg))
+    return jeng, teng
+
+
+def test_rwkv_greedy_tokens_identical_three_ways(rwkv_engines):
+    jeng, teng = rwkv_engines
+    _, channel = teng.serve_loopback()
+    for seed, plen in ((0, 8), (1, 21)):
+        prompts = _prompts(2, plen, seed)
+        want = jeng.generate(prompts)
+        assert want.shape == (2, 5)
+        direct = teng.generate(prompts)
+        streamed = rpc_generate_stream(channel, prompts)
+        unary = serve_stub(channel).generate((prompts, 0)).result()
+        for got in (direct, streamed, unary):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_rwkv_preemption_replays_the_recurrent_state(rwkv_engines):
+    """A request preempted by the KV budget is rebuilt by replaying its
+    prefill and decode steps: the RWKV state it resumes from equals the
+    dropped one, so it finishes with the tokens of its solo run."""
+    _, teng = rwkv_engines
+    p1, p2 = _prompts(1, 8, 4), _prompts(1, 8, 5)
+    solo = [teng.generate(p, 4) for p in (p1, p2)]
+    sched = ServeScheduler(teng, max_batch=4, kv_blocks=21, block_size=1)
+    reqs = [sched.submit(p, 4) for p in (p1, p2)]
+    while not all(r.finished for r in reqs):
+        sched.step()
+    assert sched.counters["preempted"] >= 1
+    for req, want in zip(reqs, solo):
+        np.testing.assert_array_equal(np.stack(req.tokens, axis=1), want)
+
+
+def test_rwkv_rebuild_reproduces_the_states(rwkv_engines):
+    """scheduler_rebuild's states equal the states of the run it
+    replays, tensor for tensor."""
+    _, teng = rwkv_engines
+    sched = ServeScheduler(teng, max_batch=1)
+    req = sched.submit(_prompts(2, 9, 6), 4)
+    req.tokens.append(teng.scheduler_prefill(req))
+    for _ in range(2):
+        req.tokens.append(teng.scheduler_decode(req))
+    live = req.runtime[0]
+    teng.scheduler_rebuild(req)
+    for a, b in zip(live, req.runtime[0]):
+        for key in ("S", "shift_tm"):
+            assert torch.equal(a["mixer"][key], b["mixer"][key])
+        assert torch.equal(a["shift_cm"], b["shift_cm"])
+
+
+def test_rwkv_cli_serves_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = [subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", RWKV,
+         "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
+         "11", "--new-tokens", "3", "--requests", "2", *extra],
+        capture_output=True, text=True, env=env, timeout=120)
+        for extra in ([], ["--no-rpc"])]
+    samples = []
+    for r in runs:
+        assert r.returncode == 0, r.stderr
+        samples.append([line.split("sample=")[1]
+                        for line in r.stdout.splitlines()
+                        if "sample=" in line])
+    assert len(samples[0]) == 2 and samples[0] == samples[1]
