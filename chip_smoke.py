@@ -11,8 +11,11 @@ Phases (any failure raises, and the script exits non-zero):
    kernel of ``src/repro_torch/csrc`` compiled, one nvcc each, started
    together;
 2. flash attention vs plain: the kernel against ``attention_plain`` on
-   the reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2) and on
-   the Qwen3-8B prefill shape, then kernel / plain / SDPA times there;
+   the reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2), on
+   cases of the wgmma path's edges and on the Qwen3-8B prefill shape,
+   each with the path it took (bf16 at head dims 64 and 128 must take
+   ``wgmma``), then kernel / plain / SDPA times there, warm and with L2
+   flushed;
 3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
    reference's kernel-test sizes, unaligned serialization sizes, 8
    endpoint rows of the default payload and of the Qwen3-8B payload,
@@ -22,13 +25,16 @@ Phases (any failure raises, and the script exits non-zero):
 4. the RWKV-6 WKV scan vs plain: the kernel against
    ``rwkv6_scan_plain`` and the sequential ``rwkv6_ref`` on the
    reference's kernel-test cases and under strong decay (atol/rtol
-   1e-4, outputs finite), and at the RWKV-6 1.6B prefill shape, then
-   kernel / plain times there;
+   1e-4, outputs finite), at the RWKV-6 1.6B prefill shape, and through
+   the model's strided ``(B, S, H, hs)`` entry against the folded plain
+   result, then kernel / plain times there and the kernel with the
+   layout's fold copies against the strided kernel without them;
 5. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
    through the port's serve entry point, ``--batch 4 --prompt-len 512
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
    ``--unary`` and with ``--no-rpc``. Greedy tokens must agree across the
-   three, and the flash kernel must have launched 36 times per prefill;
+   three, and the flash kernel must have launched 36 times per prefill,
+   every launch on its wgmma path;
 6. end to end, kernel vs plain: last-position logits of the same
    prompts with the flash kernel on and off (bf16, Qwen3-8B), two
    controls (the kernel with a window that drops keys, and with the
@@ -84,6 +90,16 @@ FA_CASES = [
     (1, 192, 4, 1, 128, True, None, None),
     (2, 64, 4, 2, 64, False, None, None),
     (1, 320, 6, 2, 64, True, 128, 30.0),
+]
+# the wgmma path's edges, bf16: a ragged length (not a multiple of the
+# 128-row tile), G = 1 / 4 / 8 q heads a kv head, non-causal, window with
+# softcap
+FA_WG_CASES = [
+    (1, 200, 8, 2, 128, True, None, None),
+    (2, 200, 4, 4, 64, True, None, None),
+    (1, 256, 8, 1, 128, True, None, None),
+    (1, 200, 8, 8, 128, False, None, None),
+    (1, 320, 4, 1, 128, True, 100, 20.0),
 ]
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # H100 SXM data sheet: HBM3 bytes/s and dense tensor-core bf16 FLOP/s
@@ -207,6 +223,19 @@ def gpu_ms(fn, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def demangled(symbol: str) -> str:
+    """A kernel's mangled entry name as ``name<template args>``, through
+    c++filt where the machine has it."""
+    import shutil
+    filt = shutil.which("c++filt")
+    if filt:
+        out = subprocess.run([filt, symbol], capture_output=True,
+                             text=True).stdout.strip()
+        out = out.replace("(anonymous namespace)::", "").split("(")[0]
+        return out.removeprefix("void ") or symbol
+    return symbol
+
+
 def phase_build(name: str) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -217,14 +246,27 @@ def phase_build(name: str) -> None:
           + ", ".join(f"{k} {_build.build_seconds[k]:.2f} s"
                       for k in KERNEL_SOURCES) + ")")
     for src in KERNEL_SOURCES:
+        kernel = "?"
         for line in _build.build_log.get(src, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
+                print(f"[build] {src} {demangled(kernel)}: {line.strip()}")
+    # K4 takes every exponential as ex2.approx: one MUFU.EX2 each in SASS
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.build("rwkv6_scan"))],
+                              capture_output=True, text=True).stdout
+        print(f"[build] rwkv6_scan SASS: {sass.count('MUFU.EX2')} MUFU.EX2, "
+              f"{sass.count('CALL')} calls")
 
 
 def phase_kernel(name: str) -> dict:
     from repro_torch.kernels.flash_attention import (attention_plain,
-                                                     flash_attention)
+                                                     flash_attention,
+                                                     kernel_path)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(B, S, H, KV, dh, dtype):
@@ -241,16 +283,25 @@ def phase_kernel(name: str) -> dict:
     def compare(case, dtype, make=inputs):
         B, S, H, KV, dh, causal, window, cap = case
         q, k, v = make(B, S, H, KV, dh, dtype)
+        before = dict(flash_attention.launches_by_path)
         out = flash_attention(q, k, v, causal, window, cap)
         torch.cuda.synchronize()
+        ran = [p for p, n in flash_attention.launches_by_path.items()
+               if n != before[p]]
         ref = attention_plain(q, k, v, causal, window, cap)
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOLS[dtype]
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        want = kernel_path(dtype, dh)
         print(f"[kernel] {str(dtype)[6:]:8s} B={B} S={S} H={H} KV={KV} "
               f"dh={dh} causal={causal} window={window} softcap={cap}"
-              f"{' strided' if make is strided else ''}: "
-              f"max_abs_err={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
+              f"{' strided' if make is strided else ''}: path "
+              f"{'+'.join(ran) or 'none'} max_abs_err={err:.3g} tol={tol} "
+              f"{'ok' if ok else 'FAIL'}")
+        if ran != [want] or (dtype == torch.bfloat16 and dh in (64, 128)
+                             and want != "wgmma"):
+            raise AssertionError(f"flash kernel ran {ran} on {case} "
+                                 f"{dtype}, not {want}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with "
                                  f"attention_plain on {case} {dtype}")
@@ -259,27 +310,38 @@ def phase_kernel(name: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in FA_CASES:
             compare(case, dtype)
+    for case in FA_WG_CASES:
+        compare(case, torch.bfloat16)
+        compare(case, torch.bfloat16, make=strided)
     main_case = (BATCH, PROMPT_LEN, 32, 8, 128, True, None, None)
     compare(main_case, torch.bfloat16, make=strided)
     err, (q, k, v) = compare(main_case, torch.bfloat16)
+    path = kernel_path(q.dtype, q.shape[-1])
 
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = cuda_ms(lambda: flash_attention(q, k, v, True))
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, True))
-    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    calls = {"kernel": lambda: flash_attention(q, k, v, True),
+             "plain": lambda: attention_plain(q, k, v, True),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)}
+    warm = {key: cuda_ms(fn) for key, fn in calls.items()}
+    cold = {key: gpu_ms(fn) for key, fn in calls.items()}
     bound_ms, bound_by = attention_bound(q, k, v, True, None)
-    print(f"[kernel] Qwen3-8B prefill q{tuple(q.shape)} bf16 causal on "
-          f"{name}: kernel {ms:.4f} ms, attention_plain {plain_ms:.4f} ms, "
-          f"SDPA {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"name": "flash_attention", "route": "cuda",
+    for label, t in (("warm", warm), ("L2 flushed", cold)):
+        print(f"[kernel] Qwen3-8B prefill q{tuple(q.shape)} bf16 causal on "
+              f"{name}, {label}: kernel ({path}) {t['kernel']:.4f} ms, "
+              f"attention_plain {t['plain']:.4f} ms, SDPA {t['sdpa']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "flash_attention", "route": "cuda", "path": path,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces":
                 "src/repro/kernels/flash_attention/flash_attention.py:77",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa_ms}
+            "max_abs_err": err, "ms": warm["kernel"],
+            "plain_ms": warm["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": warm["sdpa"],
+            "ms_l2_flushed": cold["kernel"],
+            "plain_ms_l2_flushed": cold["plain"],
+            "library_ms_l2_flushed": cold["sdpa"]}
 
 
 def wkv_bound(BH: int, S: int, hs: int, chunk: int):
@@ -364,6 +426,33 @@ def phase_wkv(name: str) -> dict:
                   f"chunk={chunk} u=True", args, chunk,
                   {"plain": plain(*args, chunk)})
 
+    # the model's layout: (B, S, H, hs) head slices of one fused
+    # projection, read through strides, against the folded plain scan
+    B, H = BATCH, BH // BATCH
+    fused = randn(B, S, 4 * H, hs)
+    r4, k4, v4, w4 = (fused[:, :, j * H:(j + 1) * H] for j in range(4))
+    k4, w4 = k4 * 0.5, -torch.exp(w4 - 1.0)     # k4, w4 now contiguous
+    s04 = randn(B, H, hs, hs) * 0.1
+    u4 = randn(H, hs) * 0.5
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(BH, S, hs)
+    y4, sT4 = rwkv6_scan(r4, k4, v4, w4, s04, u4, chunk=chunk)
+    torch.cuda.synchronize()
+    yp, sTp = plain(*map(fold, (r4, k4, v4, w4)), s04.reshape(BH, hs, hs),
+                    u4.repeat(B, 1), chunk)
+    e4 = max((fold(y4) - yp).abs().max().item(),
+             (sT4.reshape(BH, hs, hs) - sTp).abs().max().item())
+    ok4 = (torch.allclose(fold(y4), yp, atol=WKV_TOL, rtol=WKV_TOL)
+           and torch.allclose(sT4.reshape(BH, hs, hs), sTp, atol=WKV_TOL,
+                              rtol=WKV_TOL))
+    print(f"[wkv] RWKV-6 1.6B prefill, (B, S, H, hs) = {tuple(r4.shape)} "
+          f"strided entry vs folded plain: max_abs_err={e4:.3g} "
+          f"tol={WKV_TOL} {'ok' if ok4 else 'FAIL'}")
+    if not ok4:
+        raise AssertionError("rwkv6_scan's strided entry disagrees")
+    err = max(err, e4)
+
     r, k, v, lw, s0, _ = args
     ms = gpu_ms(lambda: rwkv6_scan(r, k, v, lw, s0, chunk=chunk))
     plain_ms = gpu_ms(lambda: rwkv6_scan_plain(r, k, v, lw, s0, chunk=chunk))
@@ -372,12 +461,24 @@ def phase_wkv(name: str) -> dict:
           f"on {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library none, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes} B, {flops / 1e9:.3f} GFLOP)")
+    # the time mix's layout handling: the four fold copies, the kernel and
+    # y's transpose back (as before the strided entry), against the kernel
+    # reading and writing (B, S, H, hs) itself
+    r4, v4 = r4.contiguous(), v4.contiguous()
+    folded_ms = gpu_ms(lambda: rwkv6_scan(
+        *map(fold, (r4, k4, v4, w4)), s04.reshape(BH, hs, hs),
+        chunk=chunk)[0].reshape(B, H, S, hs).transpose(1, 2).contiguous())
+    strided_ms = gpu_ms(lambda: rwkv6_scan(r4, k4, v4, w4, s04, chunk=chunk))
+    print(f"[wkv] RWKV-6 1.6B time mix's scan with its layout on {name}: "
+          f"fold copies + kernel + transpose {folded_ms:.4f} ms, strided "
+          f"kernel {strided_ms:.4f} ms")
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:65",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "folded_ms": folded_ms,
+            "strided_ms": strided_ms}
 
 
 def _frames():
@@ -626,6 +727,8 @@ def phase_serve(name: str, args: list, kernel, layers: int) -> int:
     counted = (flash_attention, rwkv6_scan)
     for fn in counted:
         fn.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(
+        flash_attention.launches_by_path, 0)
     for label, extra in modes:
         torch.cuda.reset_peak_memory_stats()
         res = serve.main(args + extra)
@@ -667,9 +770,13 @@ def phase_serve(name: str, args: list, kernel, layers: int) -> int:
             n for k, n in launches.items() if k != kernel.__name__):
         raise AssertionError(f"launches {launches} for {prefills} prefills "
                              f"of {layers} layers")
+    by_path = dict(flash_attention.launches_by_path)
+    if by_path["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"flash kernel launches by path {by_path}: "
+                             f"not all on the wgmma path")
     print(f"[serve] {arch} {kernel.__name__} launches "
           f"{launches[kernel.__name__]} = {layers} x {prefills} prefills "
-          f"(all launches: {launches})")
+          f"(all launches: {launches}; flash by path: {by_path})")
     return launches[kernel.__name__]
 
 
@@ -820,18 +927,21 @@ def phase_e2e(name: str) -> None:
 
 def _wkv_reset_each_chunk(r, k, v, log_w, s0, u=None, *, chunk=64):
     """Control: K4 with the state reset to zero at every chunk boundary
-    (each chunk scanned as a row of its own)."""
+    (each chunk scanned as a row of its own). Takes and returns the time
+    mix's (B, S, H, hs) layout."""
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-    BH, S, hs = r.shape
+    B, S, H, hs = r.shape
     n = S // chunk
 
     def fold(t):
-        return t.reshape(BH * n, chunk, hs)
+        return t.transpose(1, 2).reshape(B * H * n, chunk, hs)
     y, sT = rwkv6_scan(fold(r), fold(k), fold(v), fold(log_w),
-                       s0.new_zeros(BH * n, hs, hs),
-                       None if u is None else u.repeat_interleave(n, 0),
+                       s0.new_zeros(B * H * n, hs, hs),
+                       None if u is None else
+                       u.repeat(B, 1).repeat_interleave(n, 0),
                        chunk=chunk)
-    return y.reshape(BH, S, hs), sT.reshape(BH, n, hs, hs)[:, -1]
+    return (y.reshape(B, H, S, hs).transpose(1, 2),
+            sT.reshape(B, H, n, hs, hs)[:, :, -1])
 
 
 def _wkv_decay_early(r, k, v, log_w, s0, u=None, *, chunk=64):

@@ -3,9 +3,12 @@
 ``flash_attention`` takes the reference's ``(B, S, heads, dh)`` layout.
 On a CPU tensor it computes ``attention_plain``; on a CUDA tensor it
 launches the hand-written Hopper kernel (``csrc/flash_attention.cu``)
-or raises. The backward recomputes through ``attention_plain`` under
-autograd, as the reference's custom VJP recomputes through
-``attention_ref``; the forward kernel is what serving runs.
+or raises. The kernel has three paths, chosen by ``kernel_path`` from
+the dtype and head dim alone: wgmma fed by TMA (bf16, dh 64 / 128),
+mma.sync (other bf16 head dims) and SIMT (fp32). The backward
+recomputes through ``attention_plain`` under autograd, as the
+reference's custom VJP recomputes through ``attention_ref``; the
+forward kernel is what serving runs.
 """
 from __future__ import annotations
 
@@ -19,6 +22,19 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernels of csrc/flash_attention.cu, by the code its C entry takes
+PATHS = {"simt": 0, "mma": 1, "wgmma": 2}
+
+
+def kernel_path(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that runs (dtype, dh): "wgmma" (bf16, dh 64 or 128:
+    wgmma fed by TMA), "mma" (bf16, other head dims: mma.sync) or "simt"
+    (fp32 on the CUDA cores; TF32 would miss the reference's 2e-5). The
+    choice depends on nothing else, and a launch the chosen kernel
+    refuses raises: no path stands in for another."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if dh in (64, 128) else "mma"
 
 
 _fa_fwd = None
@@ -33,7 +49,7 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         _fa_fwd = fn
     return _fa_fwd
 
@@ -77,6 +93,7 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
     _check(q, k, v, window)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    path = kernel_path(q.dtype, dh)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
@@ -87,12 +104,21 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
             B, Sq, Skv, H, KV, dh, strides, int(bool(causal)),
             int(window) if window is not None else 0,
             float(softcap) if softcap is not None else 0.0,
-            float(scale), _DTYPES[q.dtype], stream)
+            float(scale), _DTYPES[q.dtype], PATHS[path], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"({path} path): cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
     return o
+
+
+def _forward(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+    """The forward on the inputs' device: plain on the CPU, the kernel
+    on the card."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal, window, softcap, scale)
+    return _launch(q, k, v, causal, window, softcap, scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -100,9 +126,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, softcap, scale)
-        if q.device.type == "cpu":
-            return attention_plain(q, k, v, causal, window, softcap, scale)
-        return _launch(q, k, v, causal, window, softcap, scale)
+        return _forward(q, k, v, causal, window, softcap, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -126,8 +150,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``interpret``) have no counterpart: the kernel picks its own tiles
     and masks ragged edges itself."""
     scale = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
-    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    # no gradient wanted: the forward alone, without autograd's bookkeeping
+    return _forward(q, k, v, causal, window, softcap, scale)
 
 
-#: kernel launches since the last reset (CPU calls launch nothing)
+#: kernel launches since the last reset (CPU calls launch nothing), in
+#: all and by kernel_path
 flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -179,15 +179,9 @@ def rwkv6_time_mix(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     S0 = state["S"] if state is not None else torch.zeros(
         (B, H, hs, hs), dtype=torch.float32, device=x.device)
     if use_kernel:
-        Sp = S + pad
-
-        def fold(t):
-            return t.transpose(1, 2).reshape(B * H, Sp, hs)
-        u_b = p["u"].expand(B, H, hs).reshape(B * H, hs)
-        yf, sT = rwkv6_scan(fold(r), fold(k), fold(v), fold(log_w),
-                            S0.reshape(B * H, hs, hs), u_b, chunk=chunk)
-        y = yf.reshape(B, H, Sp, hs).transpose(1, 2)
-        S_new = sT.reshape(B, H, hs, hs)
+        # (B, S, H, hs) in and out: the kernel reads the projections'
+        # layout through strides, so nothing is folded or transposed
+        y, S_new = rwkv6_scan(r, k, v, log_w, S0, p["u"], chunk=chunk)
     else:
         y, S_new = rwkv6_chunked(r, k, v, log_w, p["u"], S0, chunk)
     y = y[:, :S] if pad else y

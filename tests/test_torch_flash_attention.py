@@ -95,3 +95,30 @@ def test_non_cpu_tensors_never_fall_back():
                map(torch.from_numpy, _qkv(1, 8, 2, 1, 16, seed=2)))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)
+
+
+# which kernel runs (dtype, dh): a function of those two alone
+PATH_TABLE = [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.bfloat16, 256, "mma"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,dh,path", PATH_TABLE)
+def test_kernel_path_is_pinned_by_dtype_and_head_dim(dtype, dh, path):
+    from repro_torch.kernels.flash_attention import kernel_path
+    from repro_torch.kernels.flash_attention import ops
+    assert kernel_path(dtype, dh) == path
+    assert path in ops.PATHS and set(flash_attention.launches_by_path) \
+        == set(ops.PATHS)
+
+
+def test_cpu_calls_count_no_path():
+    q, k, v = map(torch.from_numpy, _qkv(1, 16, 2, 1, 64, seed=4))
+    before = dict(flash_attention.launches_by_path)
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
+    assert flash_attention.launches_by_path == before

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (attention_plain,
-                                                 flash_attention)
+                                                 flash_attention,
+                                                 kernel_path)
 
 pytestmark = pytest.mark.gpu
 
@@ -47,12 +48,54 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
                .to(cuda, getattr(torch, dtype))
                for s in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh)))
     before = flash_attention.launches
+    path = kernel_path(getattr(torch, dtype), dh)
+    on_path = flash_attention.launches_by_path[path]
     out = flash_attention(q, k, v, causal, window, cap)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_path[path] == on_path + 1
+    if dtype == "bfloat16" and dh in (64, 128):
+        assert path == "wgmma"
     ref = attention_plain(q, k, v, causal, window, cap)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=TOLS[dtype], rtol=TOLS[dtype])
+
+
+# the wgmma path (bf16, dh 64 / 128) at its edges: the Qwen3-8B prefill
+# shape, a length that is not a multiple of the 128-row tile, G = 1, 4 and
+# 8 q heads a kv head, non-causal, window with softcap
+WG_CASES = [
+    (4, 512, 32, 8, 128, True, None, None),
+    (1, 200, 8, 2, 128, True, None, None),
+    (2, 200, 4, 4, 64, True, None, None),
+    (1, 256, 8, 1, 128, True, None, None),
+    (1, 200, 8, 8, 128, False, None, None),
+    (1, 320, 4, 1, 128, True, 100, 20.0),
+    (2, 130, 8, 2, 64, True, 48, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", WG_CASES)
+@pytest.mark.parametrize("fused", [False, True])
+def test_wgmma_path_matches_plain(cuda, case, fused):
+    B, S, H, KV, dh, causal, window, cap = case
+    rng = np.random.default_rng(S + H)
+    if fused:   # head slices of one (B, S, H + 2 KV, dh) projection
+        qkv = torch.from_numpy(rng.standard_normal(
+            (B, S, H + 2 * KV, dh)).astype(np.float32)).to(cuda,
+                                                            torch.bfloat16)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+            for s in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh)))
+    before = flash_attention.launches_by_path["wgmma"]
+    out = flash_attention(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["wgmma"] == before + 1
+    ref = attention_plain(q, k, v, causal, window, cap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -232,6 +275,52 @@ def test_wkv_kernel_matches_plain_and_ref(cuda, case):
         torch.testing.assert_close(sT, sTr, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_wkv_kernel_column_split_matches_plain(cuda, chunk):
+    """hs 64 at each chunk: one block owns a row's 64 value columns where
+    the tiles fit (chunk 16, 32), two blocks of 32 where they do not
+    (chunk 64)."""
+    r, k, v, lw, s0, _ = _wkv_inputs(cuda, 6, 128, 64, False, chunk)
+    y, sT = wkv_ops._launch(r, k, v, lw, s0, chunk)
+    yp, sTp = rwkv6_scan_plain(r, k, v, lw, s0, chunk=chunk)
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sT, sTp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S", [512, 50])
+def test_wkv_kernel_model_layout_matches_folded_plain(cuda, S):
+    """The (B, S, H, hs) entry, r and v as strided head slices of one
+    fused tensor, against the folded plain scan (padding and u too)."""
+    B, H, hs = 2, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(S)
+    fused = torch.randn(B, S, 4 * H, hs, generator=g, device=cuda)
+    r, k, v, lw = (fused[:, :, j * H:(j + 1) * H] for j in range(4))
+    k, lw = k * 0.5, -torch.exp(lw - 1.0)
+    s0 = torch.randn(B, H, hs, hs, generator=g, device=cuda) * 0.1
+    u = torch.randn(H, hs, generator=g, device=cuda) * 0.5
+    before = rwkv6_scan.launches
+    y, sT = rwkv6_scan(r, k, v, lw, s0, u, chunk=16)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert y.shape == (B, S, H, hs) and sT.shape == (B, H, hs, hs)
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, S, hs)
+    yr, sTr = rwkv6_scan(*(fold(t) for t in (r, k, v, lw)),
+                         s0.reshape(B * H, hs, hs), u.repeat(B, 1), chunk=16)
+    pad = (-S) % 16
+    padded = (torch.nn.functional.pad(fold(t), (0, 0, 0, pad))
+              for t in (r, k, v, lw))
+    yp, sTp = rwkv6_scan_plain(*padded, s0.reshape(B * H, hs, hs),
+                               chunk=16)
+    yp = yp[:, :S] + (fold(r) * fold(k) * u.repeat(B, 1)[:, None]).sum(
+        -1, keepdim=True) * fold(v)
+    torch.testing.assert_close(fold(y), yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sT.reshape(B * H, hs, hs), sTp, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(fold(y), yr, atol=1e-4, rtol=1e-4)
+
+
 def test_wkv_kernel_strong_decay_stays_finite(cuda):
     BH, S, hs = 2, 64, 32
     ones = torch.ones(BH, S, hs, device=cuda)
@@ -243,6 +332,8 @@ def test_wkv_kernel_strong_decay_stays_finite(cuda):
                                chunk=16)
     torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(sT, sTp, atol=1e-4, rtol=1e-4)
+    assert (y - yp).abs().max().item() == 0.0
+    assert (sT - sTp).abs().max().item() == 0.0
 
 
 def test_wkv_kernel_refuses_what_it_does_not_take(cuda):

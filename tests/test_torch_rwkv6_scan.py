@@ -122,3 +122,65 @@ def test_cpu_calls_launch_nothing():
     r, k, v, lw, s0, _ = _torch(_inputs(1, 16, 16, False))
     rwkv6_scan(r, k, v, lw, s0, chunk=16)
     assert rwkv6_scan.launches == before
+
+
+# the model's layout: (B, S, H, hs) inputs, (B, H, hs, hs) state, u (H, hs)
+CASES_4D = [
+    # B, S, H, hs, chunk, with_u
+    (2, 64, 2, 32, 16, True),      # S a multiple of the chunk
+    (1, 50, 3, 16, 16, True),      # padded tail
+    (2, 40, 2, 64, 64, False),     # chunk cut to max(8, S)
+    (3, 7, 2, 16, 16, True),       # S < 8
+]
+
+
+def _inputs4(B, S, H, hs, with_u, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    r, k, v = (rng.standard_normal((B, S, H, hs)).astype(f)
+               for _ in range(3))
+    k = k * f(0.5)
+    lw = -np.exp(rng.standard_normal((B, S, H, hs)) - 1.0).astype(f)
+    s0 = (rng.standard_normal((B, H, hs, hs)) * 0.1).astype(f)
+    u = (rng.standard_normal((H, hs)) * 0.5).astype(f) if with_u else None
+    return r, k, v, lw, s0, u
+
+
+def _fold(a):
+    B, S, H, hs = a.shape
+    return np.ascontiguousarray(a.transpose(0, 2, 1, 3)).reshape(
+        B * H, S, hs)
+
+
+@pytest.mark.parametrize("case", CASES_4D)
+def test_model_layout_matches_jax_scan(case):
+    """The (B, S, H, hs) entry equals the JAX scan on the folded
+    (B * H, S, hs) inputs, with padding and the bonus u."""
+    B, S, H, hs, chunk, with_u = case
+    r, k, v, lw, s0, u = _inputs4(B, S, H, hs, with_u, seed=S + hs)
+    y, sT = rwkv6_scan(*_torch((r, k, v, lw, s0, u)), chunk=chunk)
+    assert y.shape == (B, S, H, hs) and sT.shape == (B, H, hs, hs)
+    ju = None if u is None else jnp.asarray(np.tile(u, (B, 1)))
+    jy, jsT = jax_scan(*(jnp.asarray(_fold(a)) for a in (r, k, v, lw)),
+                       jnp.asarray(s0.reshape(B * H, hs, hs)), ju,
+                       chunk=chunk)
+    _close(y.transpose(1, 2).reshape(B * H, S, hs), jy)
+    _close(sT.reshape(B * H, hs, hs), jsT)
+
+
+def test_model_layout_reads_strided_views():
+    """r, k, v, log_w as head slices of one fused projection give what
+    their contiguous copies give."""
+    B, S, H, hs = 2, 32, 2, 16
+    rng = np.random.default_rng(5)
+    fused = torch.from_numpy(rng.standard_normal(
+        (B, S, 4 * H, hs)).astype(np.float32))
+    r, k, v, lw = (fused[:, :, j * H:(j + 1) * H] for j in range(4))
+    lw = -torch.exp(lw - 1.0)
+    s0 = torch.zeros(B, H, hs, hs)
+    assert not r.is_contiguous()
+    y, sT = rwkv6_scan(r, k, v, lw, s0, chunk=16)
+    yc, sTc = rwkv6_scan(*(t.contiguous() for t in (r, k, v, lw)), s0,
+                         chunk=16)
+    torch.testing.assert_close(y, yc)
+    torch.testing.assert_close(sT, sTc)

@@ -102,6 +102,43 @@ def test_time_mix_matches_jax(layer0, use_kernel, with_state):
     _close(tnew["shift_tm"], jnew["shift_tm"])
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_time_mix_kernel_path_hands_the_model_layout(layer0, monkeypatch,
+                                                     with_state):
+    """With use_kernel the time mix gives the WKV scan its (B, S, H, hs)
+    projections and (B, H, hs, hs) state as they are (no fold copy) and
+    takes y back in that layout; the result still equals the JAX time
+    mix's."""
+    jp, tp = layer0
+    m = get_reduced_config(ARCH).model
+    jm = jax_reduced(ARCH).model
+    H, hs = m.d_model // m.ssm.head_size, m.ssm.head_size
+    x = _rng(3).standard_normal((2, PROMPT, m.d_model)).astype(np.float32)
+    st = _state(4, 2, m.d_model, H, hs) if with_state else None
+    seen = []
+
+    def spy(r, k, v, log_w, s0, u=None, *, chunk):
+        seen.append((r.shape, r.data_ptr(), s0.shape, u.shape))
+        y, sT = ssm_rwkv6_scan(r, k, v, log_w, s0, u, chunk=chunk)
+        seen.append(y.shape)
+        return y, sT
+    ssm_rwkv6_scan = ssm.rwkv6_scan
+    monkeypatch.setattr(ssm, "rwkv6_scan", spy)
+    tst = ({k: torch.from_numpy(st[k]) for k in ("S", "shift_tm")}
+           if with_state else None)
+    tout, tnew = ssm.rwkv6_time_mix(m, m.ssm, tp, torch.from_numpy(x), tst,
+                                    use_kernel=True)
+    Sp = PROMPT + (-PROMPT) % 16
+    assert seen[0][0] == (2, Sp, H, hs) and seen[0][2] == (2, H, hs, hs)
+    assert seen[0][3] == (H, hs) and seen[1] == (2, Sp, H, hs)
+    jst = ({k: jnp.asarray(st[k]) for k in ("S", "shift_tm")}
+           if with_state else None)
+    jout, jnew = jax_ssm.rwkv6_time_mix(jm, jm.ssm, jp, jnp.asarray(x), jst,
+                                        use_kernel=True)
+    _close(tout, jout)
+    _close(tnew["S"], jnew["S"])
+
+
 def test_time_mix_step_matches_jax(layer0):
     jp, tp = layer0
     m = get_reduced_config(ARCH).model
