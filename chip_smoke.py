@@ -12,10 +12,13 @@ Phases (any failure raises, and the script exits non-zero):
    together;
 2. flash attention vs plain: the kernel against ``attention_plain`` on
    the reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2), on
-   cases of the wgmma path's edges and on the Qwen3-8B prefill shape,
-   each with the path it took (bf16 at head dims 64 and 128 must take
-   ``wgmma``), then kernel / plain / SDPA times there, warm and with L2
-   flushed;
+   cases of the wgmma path's edges, on the Qwen3-8B prefill shape and on
+   its training shape (batch 2, seq 4096), each with the path it took
+   (bf16 at head dims 64 and 128 must take ``wgmma``); at the training
+   shape also per 128-row q tile, against two controls (a KV tile
+   dropped, the causal edge one key late in the last tile) that the
+   tile bound must catch; then kernel / plain / SDPA times at both
+   shapes, warm and with L2 flushed;
 3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
    reference's kernel-test sizes, unaligned serialization sizes, 8
    endpoint rows of the default payload and of the Qwen3-8B payload,
@@ -47,16 +50,28 @@ Phases (any failure raises, and the script exits non-zero):
    logits within a bound that two wrong WKVs patched in (the state reset
    at every chunk boundary; cum in place of cum_{t-1}) must exceed, and
    a reduced model in fp32;
-9. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
+9. training (``[train]``): Qwen3-8B at full width cut to 4 layers
+   (bf16 compute, fp32 masters, AdamW, remat, seq 4096, batch 2) takes 4
+   steps through the port's ``Trainer``, with the flash kernel launched
+   twice a layer a step (forward and remat's recompute), all on wgmma;
+   its first step's loss, gradient norm and one ``wq`` gradient with the
+   kernel on and off, and a control (the kernel's output rows shifted by
+   one position) that each of the three bounds must catch; the reduced model in fp32,
+   3 steps on the card against the CPU; the train CLI with checkpoints
+   and a ``Trainer`` whose step 3 fails until it restarts from
+   ``step_2`` and lands on the unfaulted losses; RWKV-6 1.6B at full
+   width through the train CLI (no WKV kernel launch: it has no
+   backward); the ``examples/torch_train_ps_mode.py --tiny`` run;
+10. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
    p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
    default payload and with ``--arch qwen3-8b``, and fully_connected on
    the collective transport. Serialized runs must launch the pack
    kernel (and unpack, where the family unpacks), non-serialized runs
    neither;
-10. the channels on the card against the same channels on CPU rows,
+11. the channels on the card against the same channels on CPU rows,
     byte for byte (the CPU tests hold those equal to the JAX package),
     and ``--check-baseline benchmarks/BENCH_fabric.json``;
-11. a JSON line of kernel numbers, then the result line.
+12. a JSON line of kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -66,6 +81,7 @@ import contextlib
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -102,6 +118,16 @@ FA_WG_CASES = [
     (1, 320, 4, 1, 128, True, 100, 20.0),
 ]
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K3 at the training shape, against plain, per (batch, head, 128-row q
+# tile): mean|kernel - plain| / mean|plain|. An element of o is a mean
+# over up to 4096 keys (about 1/64 of |v| at the last rows), so an
+# absolute bound set by the first rows says nothing of the last; a
+# tile's own scale does. Both round o to bf16 and differ by a few units
+# in its last place (2^-8 relative). Two controls must exceed the bound:
+# one KV tile dropped for the rows after it, and the causal edge one key
+# late in the last q tile only.
+TILE = 128
+TILE_REL_TOL = 5e-3
 # H100 SXM data sheet: HBM3 bytes/s and dense tensor-core bf16 FLOP/s
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
 # End-to-end logits, kernel vs plain, bf16, as max|diff| / max|plain|.
@@ -156,6 +182,40 @@ ROWS = 8
 SUITE = [("p2p_latency", []), ("p2p_bandwidth", []),
          ("ps_throughput", ["--num-ps", "2", "--num-workers", "3"])]
 SUITE_TIMES = ["--warmup", "0.2", "--duration", "1"]
+# Training at full width: Qwen3-8B cut to TRAIN_LAYERS of its 36 layers
+# (every width kept, as the reference's examples/train_ps_mode.py cuts a
+# config with dataclasses.replace), bf16 compute, fp32 masters, AdamW,
+# remat nothing_saveable, host_batch data
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 4096, 2, 4
+# The first step, flash kernel on against off, on the same params and
+# batch: the loss and the global gradient norm relative to plain's, one
+# layer's wq gradient as max|diff| / max|plain|. The two differ by the
+# bf16 rounding of each layer's attention output (see E2E_REL_TOL),
+# carried through 4 layers forward and back. Each limit lies between a
+# sound run's reading and the control's (the kernel's output rows
+# shifted by one position), which must break every one of them: loss
+# 5.25e-6 / 5.27e-4, grad norm 5.89e-6 / 2.95e-3, wq 0.0068 / 0.245
+# (NVIDIA H100 80GB HBM3, 700 W).
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL = 5e-5, 1.5e-4, 5e-2
+TRAIN_WQ_LAYER = 1
+# the reduced model in fp32, card against CPU: both fp32 throughout, so
+# they differ in summation order only
+TRAIN_FP32_TOL = 1e-4
+# the checkpoint restart against the unfaulted run, both on the card:
+# the embedding's backward adds with atomics, in an order that changes
+# from run to run, so the two agree to rounding and not bit for bit
+TRAIN_RESTART_TOL = 1e-5
+TRAIN_SMALL = ["--seq-len", "128", "--global-batch", "4"]
+# device kernels by kind, for [profile] (first match wins): the port's own
+# kernels, cuBLAS / CUTLASS products, then PyTorch's elementwise and
+# reduction kernels
+# (matched against the lower-cased kernel name)
+KERNEL_KINDS = (("K3", ("fa_fwd",)), ("K4", ("rwkv6_scan",)),
+                ("K1/K2", ("pp_kernel",)),
+                ("gemm", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
+                          "sm90_")),
+                ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+                ("elementwise", ("elementwise",)))
 
 
 def card() -> str:
@@ -318,30 +378,107 @@ def phase_kernel(name: str) -> dict:
     err, (q, k, v) = compare(main_case, torch.bfloat16)
     path = kernel_path(q.dtype, q.shape[-1])
 
-    import torch.nn.functional as F
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    calls = {"kernel": lambda: flash_attention(q, k, v, True),
-             "plain": lambda: attention_plain(q, k, v, True),
-             "sdpa": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)}
-    warm = {key: cuda_ms(fn) for key, fn in calls.items()}
-    cold = {key: gpu_ms(fn) for key, fn in calls.items()}
-    bound_ms, bound_by = attention_bound(q, k, v, True, None)
-    for label, t in (("warm", warm), ("L2 flushed", cold)):
-        print(f"[kernel] Qwen3-8B prefill q{tuple(q.shape)} bf16 causal on "
-              f"{name}, {label}: kernel ({path}) {t['kernel']:.4f} ms, "
-              f"attention_plain {t['plain']:.4f} ms, SDPA {t['sdpa']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+    def times(label, q, k, v):
+        """Kernel / plain / SDPA at one shape, warm and L2 flushed."""
+        import torch.nn.functional as F
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        calls = {"kernel": lambda: flash_attention(q, k, v, True),
+                 "plain": lambda: attention_plain(q, k, v, True),
+                 "sdpa": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, enable_gqa=True)}
+        warm = {key: cuda_ms(fn) for key, fn in calls.items()}
+        cold = {key: gpu_ms(fn) for key, fn in calls.items()}
+        bound_ms, bound_by = attention_bound(q, k, v, True, None)
+        for how, t in (("warm", warm), ("L2 flushed", cold)):
+            print(f"[kernel] {label} q{tuple(q.shape)} bf16 causal on "
+                  f"{name}, {how}: kernel ({path}) {t['kernel']:.4f} ms, "
+                  f"attention_plain {t['plain']:.4f} ms, SDPA "
+                  f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+        return {"ms": warm["kernel"], "plain_ms": warm["plain"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": warm["sdpa"], "ms_l2_flushed": cold["kernel"],
+                "plain_ms_l2_flushed": cold["plain"],
+                "library_ms_l2_flushed": cold["sdpa"]}
+
+    serving = times("Qwen3-8B prefill", q, k, v)
+    del q, k, v
+    train_case = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, True, None, None)
+    train_err, (q, k, v) = compare(train_case, torch.bfloat16)
+    tile_err = tile_check(name, q, k, v)
+    training = {"shape": f"q{tuple(q.shape)} bf16 causal",
+                "max_abs_err": train_err, "tile_rel_err": tile_err,
+                **times("Qwen3-8B training", q, k, v)}
+    del q, k, v
+    torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda", "path": path,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces":
                 "src/repro/kernels/flash_attention/flash_attention.py:77",
-            "max_abs_err": err, "ms": warm["kernel"],
-            "plain_ms": warm["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": warm["sdpa"],
-            "ms_l2_flushed": cold["kernel"],
-            "plain_ms_l2_flushed": cold["plain"],
-            "library_ms_l2_flushed": cold["sdpa"]}
+            "max_abs_err": max(err, train_err), **serving,
+            "training_shape": training}
+
+
+def tile_rel(out: torch.Tensor, ref: torch.Tensor):
+    """Per (batch, q tile, head) of (B, S, H, dh) outputs: mean|out - ref|
+    / mean|ref| over the tile's rows and head dims. Returns (the largest,
+    its (batch, tile, head))."""
+    B, S, H, dh = ref.shape
+
+    def tiles(t):
+        return t.view(B, S // TILE, TILE, H, dh).mean((2, 4))
+    r = tiles((out.float() - ref.float()).abs()) / tiles(ref.float().abs())
+    i = int(r.argmax())
+    return r.max().item(), tuple(int(x) for x in
+                                 torch.unravel_index(torch.tensor(i),
+                                                     r.shape))
+
+
+def tile_check(name: str, q, k, v) -> float:
+    """K3 at the training shape against plain per q tile (TILE_REL_TOL),
+    and two controls the bound must catch, computed by SDPA under a wrong
+    mask: one KV tile (keys S-1024 .. S-897) dropped for every row after
+    it, and the last q tile seeing one key past the causal edge."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    out = flash_attention(q, k, v, True)
+    ref = attention_plain(q, k, v, True)
+    sound, at = tile_rel(out, ref)
+    del out
+    i = torch.arange(S, device=q.device)
+    causal = i[:, None] >= i[None, :]
+    lo = S - 1024
+    masks = {
+        f"keys {lo}-{lo + TILE - 1} dropped from row {lo + TILE} on":
+            causal & ~((i[None, :] >= lo) & (i[None, :] < lo + TILE)
+                       & (i[:, None] >= lo + TILE)),
+        f"rows from {S - TILE} on seeing key i+1":
+            causal | ((i[None, :] == i[:, None] + 1)
+                      & (i[:, None] >= S - TILE))}
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    controls = {}
+    for label, mask in masks.items():
+        wrong = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        controls[label] = tile_rel(wrong.transpose(1, 2), ref)
+        del wrong
+    print(f"[kernel] Qwen3-8B training q{tuple(q.shape)} bf16 causal, per "
+          f"(batch, q tile of {TILE}, head) mean|kernel - plain| / "
+          f"mean|plain|: max {sound:.3g} at {at} (bound {TILE_REL_TOL}) "
+          f"on {name}")
+    for label, (r, where) in controls.items():
+        print(f"[kernel] control, {label}: {r:.3g} at {where} "
+              f"({'caught' if r > TILE_REL_TOL else 'NOT caught'})")
+    if sound > TILE_REL_TOL:
+        raise AssertionError(f"flash kernel at the training shape: tile "
+                             f"error {sound} beyond {TILE_REL_TOL}")
+    missed = [c for c, (r, _) in controls.items() if r <= TILE_REL_TOL]
+    if missed:
+        raise AssertionError(f"the tile bound misses the controls {missed}")
+    return sound
 
 
 def wkv_bound(BH: int, S: int, hs: int, chunk: int):
@@ -784,9 +921,6 @@ def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
     """Device busy share of one prefill and of greedy decode steps at the
     serving shape (torch.profiler's CUDA kernel times over host wall
     time), and the kernels that take most of the device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import steps
 
     prefill = steps.make_prefill_step(acfg, max_seq=PROMPT_LEN + n_decode)
@@ -803,31 +937,48 @@ def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
     for label, fn in (("prefill", lambda: prefill(params,
                                                   {"tokens": tokens})),
                       (f"prefill + {n_decode} decode steps", run)):
+        profiled(name, f"{acfg.model.name} {label}", fn)
+
+
+def profiled(name: str, label: str, fn, top_n: int = 4):
+    """Run ``fn`` once under torch.profiler and print its device busy
+    share (CUDA kernel time over host wall time) and the kernels that
+    take most of the device time; returns what ``fn`` returns."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side entries only: the kernels themselves, not the aten
-        # ops that launched them (whose device time would count twice)
-        avgs = [a for a in prof.key_averages()
-                if a.device_type == DeviceType.CUDA
-                and a.self_device_time_total > 0]
-        busy_ms = sum(a.self_device_time_total for a in avgs) / 1e3
-        if not avgs:
-            print(f"[profile] {acfg.model.name} {label}: wall "
-                  f"{wall_ms:.1f} ms; device "
-                  f"time not measured (the profiler saw no CUDA kernels)")
-            continue
-        top = sorted(avgs, key=lambda a: -a.self_device_time_total)[:4]
-        print(f"[profile] {acfg.model.name} {label}: wall {wall_ms:.1f} ms, "
-              f"device busy "
-              f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), top: "
-              + "; ".join(f"{a.key[:48]} {a.self_device_time_total / 1e3:.2f}"
-                          f" ms x{a.count}" for a in top)
-              + f" on {name}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side entries only: the kernels themselves, not the aten ops
+    # that launched them (whose device time would count twice)
+    avgs = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    busy_ms = sum(a.self_device_time_total for a in avgs) / 1e3
+    if not avgs:
+        print(f"[profile] {label}: wall {wall_ms:.1f} ms; device time not "
+              f"measured (the profiler saw no CUDA kernels)")
+        return out
+    top = sorted(avgs, key=lambda a: -a.self_device_time_total)[:top_n]
+    kinds = {}
+    for a in avgs:
+        kind = next((k for k, words in KERNEL_KINDS if any(
+            w in a.key.lower() for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + a.self_device_time_total / 1e3
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{sum(a.count for a in avgs)} kernel launches; by kind: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + "; top: "
+          + "; ".join(f"{a.key[:48]} {a.self_device_time_total / 1e3:.2f}"
+                      f" ms x{a.count}" for a in top)
+          + f" on {name}")
+    return out
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -988,6 +1139,265 @@ def phase_e2e_rwkv(name: str) -> None:
               RWKV_E2E_REL_TOL)
 
 
+def train_shape(seq: int, batch: int):
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec("train", seq_len=seq, global_batch=batch, kind="train")
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_full(name: str) -> int:
+    """Qwen3-8B at full width, TRAIN_LAYERS layers: the first step with
+    the flash kernel on and off (and a control), then TRAIN_STEPS steps
+    of the port's Trainer, the main path, with the launch counts set to
+    0 just before and read just after. Returns K3's launches there."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_config
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    base = train_config(ARCH, reduced=False, device="cuda")
+    acfg = base.replace(model=dataclasses.replace(base.model,
+                                                  num_layers=TRAIN_LAYERS))
+    shape = train_shape(TRAIN_SEQ, TRAIN_BATCH)
+    n_params = acfg.model.num_params()
+    trainer = Trainer(acfg, shape, TrainerConfig(total_steps=TRAIN_STEPS,
+                                                 log_every=0), device="cuda")
+    params, opt, _ = trainer.init_state(0)
+    batch = device_batch(host_batch(acfg, shape, 0, trainer.dcfg), "cuda")
+
+    def first_step(flash: bool):
+        cfg = acfg.replace(train=dataclasses.replace(
+            acfg.train, use_flash_kernel=flash))
+        metrics, grads = steps.loss_and_grads(steps.make_loss_fn(cfg),
+                                              params, batch)
+        out = (float(metrics["ce"] + metrics["aux"]),
+               float(O.global_norm(grads)),
+               grads["layers"][TRAIN_WQ_LAYER]["mixer"]["wq"].float())
+        del grads
+        _free()
+        return out
+
+    kern, plain = first_step(True), first_step(False)
+
+    # the control: attention_forward_flash looks flash_attention up on
+    # the package at every call, so patching it there reaches the model
+    import repro_torch.kernels.flash_attention as fa
+    saved = fa.flash_attention
+    fa.flash_attention = lambda q, k, v, *args: torch.roll(
+        saved(q, k, v, *args), 1, dims=1)
+    try:
+        wrong = first_step(True)
+    finally:
+        fa.flash_attention = saved
+
+    def readings(r):
+        return (abs(r[0] - plain[0]) / abs(plain[0]),
+                abs(r[1] - plain[1]) / abs(plain[1]), rel(r[2], plain[2]))
+    bounds = (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL)
+    sound, control = readings(kern), readings(wrong)
+    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers at full width "
+          f"({n_params} params), seq {TRAIN_SEQ}, batch {TRAIN_BATCH}, step "
+          f"0 kernel vs plain: loss {kern[0]:.6f} / {plain[0]:.6f} (rel "
+          f"{sound[0]:.3g}, bound {bounds[0]}), grad norm {kern[1]:.6g} / "
+          f"{plain[1]:.6g} (rel {sound[1]:.3g}, bound {bounds[1]}), layer "
+          f"{TRAIN_WQ_LAYER} wq grad max|diff|/max|plain| {sound[2]:.3g} "
+          f"(bound {bounds[2]}) on {name}")
+    caught = all(r > b for r, b in zip(control, bounds))
+    print(f"[train] control, the kernel's output rows shifted by one "
+          f"position, vs plain: loss rel {control[0]:.3g}, grad norm rel "
+          f"{control[1]:.3g}, wq grad {control[2]:.3g} "
+          f"({'caught by each bound' if caught else 'NOT caught by each'})")
+    if any(r > b for r, b in zip(sound, bounds)):
+        raise AssertionError(f"training step 0, kernel vs plain: {sound} "
+                             f"beyond {bounds}")
+    if not caught:
+        raise AssertionError(f"the training bounds {bounds} do not each "
+                             f"catch the shifted kernel output {control}")
+    # the train step is functional: params and opt held here would stay
+    # alive beside every step's own, so the Trainer draws them again
+    del kern, plain, wrong, params, opt, batch
+    _free()
+
+    # the main path: the Trainer's steps, launches counted per step
+    per_step = []
+    trainer.fault_hook = lambda step: per_step.append(
+        dict(flash_attention.launches_by_path))
+    flash_attention.launches = rwkv6_scan.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(
+        flash_attention.launches_by_path, 0)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = trainer.train(seed=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, by_path = flash_attention.launches, \
+        dict(flash_attention.launches_by_path)
+    per_step.append(by_path)
+    step_launches = [{p: b[p] - a[p] for p in b if b[p] - a[p]}
+                     for a, b in zip(per_step, per_step[1:])]
+    losses = [r.loss for r in trainer.history]
+    for r, n in zip(trainer.history, step_launches):
+        print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers step {r.step}: "
+              f"{1e3 * r.wall_s:.1f} ms, loss {r.loss:.6f}, flash launches "
+              f"by path {n} on {name}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    steady = [r.wall_s for r in trainer.history[1:]]
+    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers: steps 1-"
+          f"{TRAIN_STEPS - 1} mean {1e3 * sum(steady) / len(steady):.1f} ms "
+          f"({tokens * len(steady) / sum(steady):.0f} tok/s), "
+          f"max_memory_allocated {peak:.2f} GiB, flash launches {launches} "
+          f"(by path {by_path}), WKV launches {rwkv6_scan.launches} on "
+          f"{name}")
+    if not all(torch.isfinite(torch.tensor(losses))) or \
+            len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"training losses {losses}")
+    want = 2 * TRAIN_LAYERS
+    if any(n != {"wgmma": want} for n in step_launches) or \
+            rwkv6_scan.launches:
+        raise AssertionError(f"flash launches per step {step_launches}, "
+                             f"not {want} on wgmma (forward and remat's "
+                             f"recompute of each layer)")
+    # one more step outside the counted run: its two halves on CUDA
+    # events, then the whole step under the profiler
+    batch = device_batch(host_batch(acfg, shape, TRAIN_STEPS, trainer.dcfg),
+                         "cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    _, grads = steps.loss_and_grads(steps.make_loss_fn(acfg), params, batch)
+    events[1].record()
+    with torch.no_grad():
+        updated = O.apply_updates(acfg.train, params, grads, opt)
+    events[2].record()
+    torch.cuda.synchronize()
+    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers, one step's halves on "
+          f"CUDA events: loss and gradients "
+          f"{events[0].elapsed_time(events[1]):.1f} ms, AdamW update "
+          f"{events[1].elapsed_time(events[2]):.1f} ms on {name}")
+    del grads, updated
+    _free()
+    profiled(name, f"Qwen3-8B {TRAIN_LAYERS} layers one train step",
+             lambda: trainer.step_fn(params, opt, batch)[2]["loss"], top_n=6)
+    del params, opt, trainer, batch
+    _free()
+    return launches
+
+
+def phase_train_small(name: str) -> None:
+    """The reduced model in fp32 on the card against the CPU; the train
+    CLI with checkpoints, and a Trainer that fails at step 3 until it
+    restarts from step_2; RWKV-6 1.6B through the CLI; the example."""
+    import runpy
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    # card against CPU, fp32, the same params
+    shape = train_shape(128, 2)
+    gen = torch.Generator().manual_seed(0)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        acfg = train_cli.train_config(
+            ARCH, reduced=True, device=device)
+        params = init_params(acfg, device="cpu",
+                             generator=gen.manual_seed(0))
+        params = O.tree_map(lambda t: t.to(device), params)
+        tr = Trainer(acfg, shape, TrainerConfig(total_steps=3, log_every=0),
+                     device=device)
+        tr.train(params=params,
+                 opt=O.init_opt_state(acfg.train, params,
+                                      period=acfg.model.pattern_period),
+                 start_step=0)
+        losses[device] = torch.tensor([r.loss for r in tr.history],
+                                      dtype=torch.float64)
+    err = (losses["cuda"] - losses["cpu"]).abs().max().item()
+    print(f"[train] reduced {ARCH} fp32, 3 steps, card vs CPU losses "
+          f"{losses['cuda'].tolist()} / {losses['cpu'].tolist()}: "
+          f"max_abs_err {err:.3g} (bound {TRAIN_FP32_TOL}) on {name}")
+    if not torch.allclose(losses["cuda"], losses["cpu"], atol=TRAIN_FP32_TOL,
+                          rtol=TRAIN_FP32_TOL):
+        raise AssertionError(f"reduced training, card vs CPU: {err:.3g}")
+
+    # faults and checkpoints on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            clean = train_cli.main(["--arch", ARCH, "--reduced", "--steps",
+                                    "6", "--ckpt-dir", f"{tmp}/clean",
+                                    "--ckpt-every", "2"] + TRAIN_SMALL)
+        print(f"[train] train CLI --reduced --steps 6 --ckpt-every 2 "
+              f"{' '.join(TRAIN_SMALL)}: {log.getvalue().strip()} "
+              f"(checkpoints {sorted(os.listdir(f'{tmp}/clean'))})")
+        calls = []
+
+        def fault(step):
+            if step == 3 and len(calls) <= tcfg.max_step_retries:
+                calls.append(step)
+                raise RuntimeError("injected node failure")
+        tcfg = TrainerConfig(total_steps=6, ckpt_dir=f"{tmp}/faulted",
+                             ckpt_every=2, log_every=0)
+        acfg = train_cli.train_config(ARCH, reduced=True, device="cuda")
+        faulted = Trainer(acfg, train_shape(128, 4), tcfg, fault_hook=fault,
+                          device="cuda")
+        faulted.train()
+    steps_run = [r.step for r in faulted.history]
+    got = {r.step: r.loss for r in faulted.history}   # the rerun wins
+    want = {r.step: r.loss for r in clean.history}
+    err = max(abs(got[s] - want[s]) for s in want)
+    print(f"[train] step 3 failed {len(calls)} times (max_step_retries "
+          f"{tcfg.max_step_retries}), steps run {steps_run}: restarted from "
+          f"step_2; losses against the unfaulted run max_abs_err {err:.3g} "
+          f"(bound {TRAIN_RESTART_TOL}) on {name}")
+    if steps_run != [0, 1, 2, 2, 3, 4, 5] or \
+            len(calls) != tcfg.max_step_retries + 1:
+        raise AssertionError(f"no restart from step_2: {steps_run}")
+    if err > TRAIN_RESTART_TOL:
+        raise AssertionError(f"restarted losses differ by {err:.3g}")
+
+    # RWKV-6 1.6B at full width and depth through the CLI: no WKV launch
+    flash_attention.launches = rwkv6_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        tr = train_cli.main(["--arch", RWKV_ARCH, "--steps", "2",
+                             "--seq-len", "1024", "--global-batch", "2"])
+    print(f"[train] {RWKV_ARCH} through the train CLI, seq 1024, batch 2: "
+          f"{log.getvalue().strip()}; step ms "
+          f"{[round(1e3 * r.wall_s, 1) for r in tr.history]}, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, WKV "
+          f"launches {rwkv6_scan.launches} on {name}")
+    if rwkv6_scan.launches or flash_attention.launches or not all(
+            torch.isfinite(torch.tensor([r.loss for r in tr.history]))):
+        raise AssertionError(f"{RWKV_ARCH} training: WKV launches "
+                             f"{rwkv6_scan.launches}, losses "
+                             f"{[r.loss for r in tr.history]}")
+    del tr
+    _free()
+
+    example = runpy.run_path(str(ROOT / "examples" / "torch_train_ps_mode.py"),
+                             run_name="example")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        tr, tr2 = example["main"](["--tiny"])
+    print(f"[train] examples/torch_train_ps_mode.py --tiny: "
+          + "; ".join(log.getvalue().strip().splitlines()) + f" on {name}")
+    if not (len(tr.history) == 6 and tr2.history[0].step == 6):
+        raise AssertionError("the example did not train and resume")
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1014,6 +1424,12 @@ def main() -> int:
     phase_e2e(name)
     wkv["launches"] = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan, 24)
     phase_e2e_rwkv(name)
+    _free()
+    train_launches = phase_train_full(name)
+    kernel["launches_by_main_path"] = {"serve": kernel["launches"],
+                                       "train": train_launches}
+    kernel["launches"] += train_launches
+    phase_train_small(name)
     launches = phase_suite(name)
     for entry in packs:
         entry["launches"] = launches[entry["name"]]

@@ -6,8 +6,10 @@ zero log_w decays nothing) and adds the bonus-u diagonal
 ``sum(r k u) v`` outside the chunked scan. On CPU tensors the scan is
 ``rwkv6_scan_plain``; on CUDA tensors it launches the hand-written
 Hopper kernel (``csrc/rwkv6_scan.cu``) or raises. The reference's
-``interpret`` knob has no counterpart, and there is no autograd: the
-reference's kernel defines no VJP either. Beside the reference's
+``interpret`` knob has no counterpart, and the kernel has no backward:
+the reference's kernel defines no VJP either, so on the card an input
+that requires a gradient is refused (train through ``rwkv6_chunked``,
+as the reference does). Beside the reference's
 ``(BH, S, hs)`` layout it takes the model's ``(B, S, H, hs)``, which the
 kernel reads through strides (see ``rwkv6_scan``)."""
 from __future__ import annotations
@@ -124,6 +126,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       the kernel reads and writes this layout through its strides, with
       no fold copy; on the CPU the inputs are folded to (B * H, S, hs)
       for ``rwkv6_scan_plain`` and the results unfolded."""
+    if r.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, log_w, s0, u)):
+        raise ValueError("rwkv6_scan: an input requires a gradient, and "
+                         "the kernel has no backward (the reference's "
+                         "kernel defines no VJP either): train with "
+                         "use_rwkv_kernel off, through rwkv6_chunked")
     four = r.dim() == 4
     S = r.shape[1]
     chunk = min(chunk, max(8, S))

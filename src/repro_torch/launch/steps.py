@@ -1,16 +1,64 @@
-"""Step functions (prefill / decode) shared by the serve engine and its
-tests: plain functions run eagerly under ``torch.no_grad`` (the
-reference jits them; PyTorch needs no counterpart)."""
+"""Step functions (train / prefill / decode) shared by the trainer, the
+serve engine and their tests: plain functions run eagerly (the reference
+jits them; PyTorch needs no counterpart). Prefill and decode run under
+``torch.no_grad``.
+
+The train step is functional, as the reference's is when the trainer
+passes ``donate=False``: it returns new parameter and optimizer-state
+tensors and leaves the ones it was given intact, so a step that fails
+can be retried from them."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.optim import optimizer as O
 
 Params = Any
+
+
+def make_loss_fn(acfg: ArchConfig):
+    """(params, batch) -> (ce + aux, {ce, aux}). Dense and RWKV models
+    have no auxiliary loss: aux is 0 (MoE, whose router loss it is, is
+    not ported)."""
+    def loss(params: Params, batch: Dict[str, torch.Tensor]):
+        hidden, _ = M.forward(acfg, params, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"), mode="train")
+        ce = M.loss_fn(acfg, params, hidden, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce.detach(), "aux": aux}
+    return loss
+
+
+def loss_and_grads(loss, params: Params, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], Params]:
+    """(metrics, gradients shaped like ``params``) of ``loss`` (a
+    ``make_loss_fn`` function) at ``params``, which stay untouched."""
+    leaves = [p.detach().requires_grad_() for p in O.tree_leaves(params)]
+    it = iter(leaves)
+    total, metrics = loss(O.tree_map(lambda _: next(it), params), batch)
+    it = iter(torch.autograd.grad(total, leaves))
+    return metrics, O.tree_map(lambda _: next(it), params)
+
+
+def make_train_step(acfg: ArchConfig):
+    """(params, opt_state, batch) -> (new_params, new_opt, metrics):
+    loss, backward, then ``apply_updates`` under ``no_grad``. metrics:
+    ``ce``, ``aux``, ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
+    loss = make_loss_fn(acfg)
+
+    def step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
+        metrics, grads = loss_and_grads(loss, params, batch)
+        with torch.no_grad():
+            new_params, new_opt, om = O.apply_updates(acfg.train, params,
+                                                      grads, opt_state)
+        metrics.update(om)
+        metrics["loss"] = metrics["ce"] + metrics["aux"]
+        return new_params, new_opt, metrics
+    return step
 
 
 def make_prefill_step(acfg: ArchConfig, max_seq: Optional[int] = None):

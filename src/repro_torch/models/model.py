@@ -7,19 +7,25 @@ the scan is a Python loop. ``models/convert.py`` unstacks the
 reference's parameters into this layout.
 
 Modes:
-  train   — full-sequence forward; no state
+  train   — full-sequence forward; no state; each layer under activation
+            checkpointing when ``acfg.train.remat`` is set
   prefill — full-sequence forward; returns per-layer states (KV / RWKV)
   decode  — single token with per-layer states
 
-Parameters are used as they are: the caller casts them to the compute
-dtype once (``cast_floats``), where the reference casts on every call.
-Mamba layers and MoE FFNs are not ported yet.
+``forward`` casts the fp32 tensors of ``params`` to the compute dtype on
+every call, as the reference does, so training differentiates through
+the cast into fp32 master weights. Serving passes parameters already in
+the compute dtype (``init_params(..., dtype=...)``), for which the cast
+is a no-op: it is paid once, at init. Mamba layers and MoE FFNs are not
+ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -55,8 +61,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def cast_floats(tree, dtype: torch.dtype):
-    """Cast fp32 tensors of a parameter tree to the compute dtype (the
-    reference's per-call ``cast_floats``, done once by the caller)."""
+    """Cast fp32 tensors of a parameter tree to the compute dtype
+    (mixed precision: fp32 masters live in the optimizer)."""
     if isinstance(tree, torch.Tensor):
         return tree.to(dtype) if tree.dtype == torch.float32 else tree
     if isinstance(tree, dict):
@@ -172,6 +178,28 @@ def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return h, ({"mixer": s} if mode != "train" else None)
 
 
+#: the products ``dots_saveable`` keeps (matmuls and einsums reach
+#: autograd as these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_policy(policy: str) -> dict:
+    """``checkpoint`` arguments for the reference's ``remat_policy``:
+    ``nothing_saveable`` recomputes the whole layer in the backward;
+    ``dots_saveable`` (any other value, as in the reference) keeps the
+    matmul outputs and recomputes the rest."""
+    if policy == "nothing_saveable":
+        return {}
+    return {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+
+
 def _cache_from_prefill(kv, window: Optional[int],
                         max_seq: int) -> KVCache:
     """Lay prefill K/V out as a ring buffer of Sc slots (slot = pos % Sc)."""
@@ -214,6 +242,8 @@ def forward(acfg: ArchConfig, params: Params, *,
     cfg = acfg.model
     check_supported(cfg)
     compute_dtype = dtype_of(acfg.train.compute_dtype)
+    if compute_dtype != torch.float32:
+        params = cast_floats(params, compute_dtype)
     B, S = (tokens.shape if tokens is not None else embeds.shape[:2])
     if mode == "prefill" and max_seq is None:
         max_seq = S
@@ -221,12 +251,17 @@ def forward(acfg: ArchConfig, params: Params, *,
     positions = None  # decode: attention reads positions from its cache
     if mode != "decode":
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    layer = _apply_layer
+    if mode == "train" and acfg.train.remat:
+        layer = functools.partial(ckpt.checkpoint, _apply_layer,
+                                  use_reentrant=False,
+                                  **_remat_policy(acfg.train.remat_policy))
     new_states: Optional[States] = [] if mode != "train" else None
     for li, p in enumerate(params["layers"]):
         st = states[li] if states is not None else None
-        x, ns = _apply_layer(cfg, li, p, x, st, mode, positions, max_seq,
-                             acfg.train.use_flash_kernel,
-                             acfg.train.use_rwkv_kernel)
+        x, ns = layer(cfg, li, p, x, st, mode, positions, max_seq,
+                      acfg.train.use_flash_kernel,
+                      acfg.train.use_rwkv_kernel)
         if new_states is not None:
             new_states.append(ns)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -239,6 +274,35 @@ def logits_fn(acfg: ArchConfig, params: Params,
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = hidden @ head.to(hidden.dtype)
     return softcap(logits, cfg.final_logit_softcap)
+
+
+def loss_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
+            labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Chunked (over seq) cross-entropy, so (B,S,V) logits never fully
+    materialize: each chunk's logits in fp32, labels of -1 masked out,
+    the mean over the unmasked ones. labels: (B,S) int. Autograd keeps
+    each chunk's fp32 logits for the backward (the reference's scan
+    keeps the same residuals)."""
+    cfg = acfg.model
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"loss_fn: sequence {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    head = head.to(hidden.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        logits = softcap(h @ head, cfg.final_logit_softcap).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = logits.gather(
+            -1, y.clamp(min=0).long()[..., None])[..., 0]
+        mask = (y >= 0).float()
+        tot = tot + torch.sum((lse - true_logit) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # =========================================================================

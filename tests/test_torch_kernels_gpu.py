@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention, payload pack / unpack, the
-RWKV-6 WKV scan) against their plain versions on the card
-(imports torch only, so it runs where JAX is not installed):
+RWKV-6 WKV scan) against their plain versions on the card, and the
+flash kernel under autograd in a train step (imports torch only, so it
+runs where JAX is not installed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
@@ -353,3 +354,79 @@ def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
         wkv_ops._launch(x, x, x, x, torch.zeros(2, 48, 48, device=cuda), 16)
     with pytest.raises(ValueError, match="one CUDA device"):
         wkv_ops._launch(t, t, t, t, s0.cpu(), 16)
+
+
+def test_wkv_kernel_refuses_inputs_that_need_a_gradient(cuda):
+    """K4 has no backward (the reference's kernel defines no VJP): an
+    input that requires a gradient is refused, where its output would
+    otherwise carry no grad_fn and leave the time mix untrained."""
+    r, k, v, lw, s0, u = _wkv_inputs(cuda, 2, 32, 64, True, 5)
+    before = rwkv6_scan.launches
+    with pytest.raises(ValueError, match="no backward"):
+        rwkv6_scan(r.requires_grad_(), k, v, lw, s0, u, chunk=16)
+    with pytest.raises(ValueError, match="no backward"):
+        rwkv6_scan(r.detach(), k, v, lw, s0, u.requires_grad_(), chunk=16)
+    assert rwkv6_scan.launches == before
+    with torch.no_grad():           # serving: no gradient wanted
+        rwkv6_scan(r, k, v, lw, s0, u, chunk=16)
+    assert rwkv6_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gradient_matches_plain(cuda, dtype):
+    """Under autograd the kernel runs the forward and the backward
+    recomputes through attention_plain (the reference's custom VJP
+    recomputes through attention_ref): the gradients equal plain's, and
+    the backward launches no kernel."""
+    B, S, H, KV, dh = 2, 200, 8, 2, 128
+    rng = np.random.default_rng(7)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  .to(cuda, getattr(torch, dtype))
+                  for s in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh),
+                            (B, S, H, dh)))
+    grads = []
+    for fn in (flash_attention, attention_plain):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, True)
+        before = flash_attention.launches
+        grads.append(torch.autograd.grad(out, leaves, g))
+        assert flash_attention.launches == before
+    tol = TOLS[dtype]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_step_launches_flash_per_layer(cuda, remat):
+    """A train step of the reduced Qwen3-8B (fp32) with the flash kernel
+    launches it once a layer in the forward and, under remat, once more
+    a layer when the backward recomputes the layer; its loss equals the
+    plain path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import optimizer as O
+
+    base = get_reduced_config("qwen3-8b")
+    shape = ShapeSpec("t", seq_len=64, global_batch=2, kind="train")
+    batch = device_batch(host_batch(base, shape, 0), cuda)
+    losses = []
+    for flash in (True, False):
+        acfg = base.replace(train=dataclasses.replace(
+            base.train, remat=remat, use_flash_kernel=flash))
+        params = init_params(acfg, device=cuda,
+                             generator=torch.Generator(device=cuda).manual_seed(0))
+        before = flash_attention.launches
+        _, _, metrics = steps.make_train_step(acfg)(
+            params, O.init_opt_state(acfg.train, params,
+                                     period=acfg.model.pattern_period),
+            batch)
+        losses.append(float(metrics["loss"]))
+        layers = acfg.model.num_layers
+        want = (2 if remat else 1) * layers if flash else 0
+        assert flash_attention.launches - before == want
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

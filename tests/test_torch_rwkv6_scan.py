@@ -36,8 +36,15 @@ def _torch(arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
 
-def _close(port, ref):
-    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **TOL)
+def _close(port, ref, what=""):
+    """assert_allclose at TOL; a failure names ``what`` was compared and
+    the element that differs most, with both values."""
+    p, r = port.numpy(), np.asarray(ref)
+    err = np.abs(p.astype(np.float64) - r)
+    at = tuple(int(i) for i in np.unravel_index(np.argmax(err), err.shape))
+    np.testing.assert_allclose(
+        p, r, **TOL, err_msg=f"{what}: max abs diff {err.max()} at {at}: "
+                             f"port {p[at]}, reference {r[at]}")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -46,9 +53,11 @@ def test_scan_matches_jax_kernel_and_ref(case):
     arrays = _inputs(BH, S, hs, with_u)
     y, sT = rwkv6_scan(*_torch(arrays), chunk=chunk)
     jargs = [None if a is None else jnp.asarray(a) for a in arrays]
-    for jy, jsT in (jax_scan(*jargs, chunk=chunk), jax_ref(*jargs)):
-        _close(y, jy)
-        _close(sT, jsT)
+    for name, (jy, jsT) in (("JAX rwkv6_scan", jax_scan(*jargs,
+                                                        chunk=chunk)),
+                            ("JAX rwkv6_ref", jax_ref(*jargs))):
+        _close(y, jy, f"y against {name}")
+        _close(sT, jsT, f"final state against {name}")
 
 
 @pytest.mark.parametrize("case", CASES)
