@@ -18,7 +18,11 @@ Phases (any failure raises, and the script exits non-zero):
    shape also per 128-row q tile, against two controls (a KV tile
    dropped, the causal edge one key late in the last tile) that the
    tile bound must catch; then kernel / plain / SDPA times at both
-   shapes, warm and with L2 flushed;
+   shapes, warm and with L2 flushed; the same kernel-test cases at head
+   dims 80 and 112, which run zero-padded to 128 (bf16 must take
+   ``wgmma``), two more padded head dims, and at the hubert-xlarge (dh
+   80) and kimi-k2 (dh 112) shapes the per-tile check with its
+   controls and kernel / plain / SDPA times;
 3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
    reference's kernel-test sizes, unaligned serialization sizes, 8
    endpoint rows of the default payload and of the Qwen3-8B payload,
@@ -37,7 +41,13 @@ Phases (any failure raises, and the script exits non-zero):
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
    ``--unary`` and with ``--no-rpc``. Greedy tokens must agree across the
    three, and the flash kernel must have launched 36 times per prefill,
-   every launch on its wgmma path;
+   every launch on its wgmma path; then (``[cluster]``) the direct
+   path's engine, its weights reused, served over a 2 ps x 2 worker
+   cluster transport for 2 rounds in which each worker streams one
+   request of those prompts in the same flush, under round_robin and
+   scheduler_least_loaded: every worker's tokens must equal the direct
+   path's, with 36 wgmma flash launches a prefill and the dispatch
+   counts per link the policy gives;
 6. end to end, kernel vs plain: last-position logits of the same
    prompts with the flash kernel on and off (bf16, Qwen3-8B), two
    controls (the kernel with a window that drops keys, and with the
@@ -56,7 +66,11 @@ Phases (any failure raises, and the script exits non-zero):
    twice a layer a step (forward and remat's recompute), all on wgmma;
    its first step's loss, gradient norm and one ``wq`` gradient with the
    kernel on and off, and a control (the kernel's output rows shifted by
-   one position) that each of the three bounds must catch; the reduced model in fp32,
+   one position) that each of the three bounds must catch;
+   hubert-xlarge at full width and depth (48 layers, dh 80, about 1 B
+   parameters) the same way for 2 steps at seq 4096, batch 1, all 96
+   flash launches a step on wgmma (dh padded to 128), the control held
+   by the ``wq`` bound; the reduced model in fp32,
    3 steps on the card against the CPU; the train CLI with checkpoints
    and a ``Trainer`` whose step 3 fails until it restarts from
    ``step_2`` and lands on the unfaulted losses; RWKV-6 1.6B at full
@@ -67,7 +81,12 @@ Phases (any failure raises, and the script exits non-zero):
    default payload and with ``--arch qwen3-8b``, and fully_connected on
    the collective transport. Serialized runs must launch the pack
    kernel (and unpack, where the family unpacks), non-serialized runs
-   neither;
+   neither; then (``[sweep]``) two ``--sweep`` runs, p2p_latency over
+   mode x payload and the ring on Qwen3-8B rows over mode x
+   stream_chunks, with the same gates cell by cell and no cell in
+   error, and one serialized cell under the profiler for the suite's
+   device busy share; then (``[workload]``) a recorded Poisson workload
+   and its replay, which must give identical rows (host only by design);
 11. the channels on the card against the same channels on CPU rows,
     byte for byte (the CPU tests hold those equal to the JAX package),
     and ``--check-baseline benchmarks/BENCH_fabric.json``;
@@ -117,16 +136,30 @@ FA_WG_CASES = [
     (1, 200, 8, 8, 128, False, None, None),
     (1, 320, 4, 1, 128, True, 100, 20.0),
 ]
+# head dims without an instance of their own, run as the next one on
+# zero-padded inputs: hubert-xlarge's 80 and kimi-k2-1t-a32b's 112 as 128
+# (bf16 on wgmma, fp32 on SIMT), on the cases above; then two more
+FA_NEW_HEAD_DIMS = (80, 112)
+FA_PADDED_CASES = [(1, 100, 4, 2, 48, True, None, None),
+                   (1, 90, 4, 2, 96, False, None, None)]
+# the shapes the new head dims meet: hubert-xlarge's attention in training
+# (16 heads of 80, kv 16, non-causal, seq 4096) and kimi-k2's (64 heads of
+# 112 over 8 kv heads, causal), batch 1
+FA_HEAD_DIM_SHAPES = {"hubert-xlarge": (1, 4096, 16, 16, 80, False),
+                      "kimi-k2-1t-a32b": (1, 4096, 64, 8, 112, True)}
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# K3 at the training shape, against plain, per (batch, head, 128-row q
-# tile): mean|kernel - plain| / mean|plain|. An element of o is a mean
-# over up to 4096 keys (about 1/64 of |v| at the last rows), so an
-# absolute bound set by the first rows says nothing of the last; a
-# tile's own scale does. Both round o to bf16 and differ by a few units
-# in its last place (2^-8 relative). Two controls must exceed the bound:
-# one KV tile dropped for the rows after it, and the causal edge one key
-# late in the last q tile only.
+# K3 at the Qwen3-8B training shape and at the head-dim shapes above,
+# against plain, per (batch, head, 128-row q tile): mean|kernel - plain|
+# / mean|plain|. An element of o is a mean over up to 4096 keys (about
+# 1/64 of |v| at the last rows), so an absolute bound set by the first
+# rows says nothing of the last; a tile's own scale does. Both round o
+# to bf16 and differ by a few units in its last place (2^-8 relative).
+# Controls must exceed the bound: one KV tile of TILE_DROP keys (the
+# smaller of the kernel's KV tiles) dropped, for the rows after it where
+# causal and for every row where not, and, where causal, the causal
+# edge one key late in the last q tile only.
 TILE = 128
+TILE_DROP = 64
 TILE_REL_TOL = 5e-3
 # H100 SXM data sheet: HBM3 bytes/s and dense tensor-core bf16 FLOP/s
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
@@ -151,6 +184,17 @@ E2E_CONTROLS = {"window S - 64": {"sliding_window": PROMPT_LEN - 64},
 # throughout, so they differ only in summation order.
 E2E_FP32_TOL = 1e-4
 KERNEL_SOURCES = ("flash_attention", "payload_pack", "rwkv6_scan")
+# [cluster]: Qwen3-8B on a 2 ps x 2 worker cluster, 2 rounds; in each,
+# each worker streams one of the serve CLI's request prompts (by index)
+# in the same flush. Per policy, the dispatch counts per link it must
+# give: round_robin cycles each worker's own shards (ps0 in round 0, ps1
+# in round 1); scheduler_least_loaded sees no reported load when both
+# workers dispatch (before the flush that serves them), so ties go to
+# ps0.
+CLUSTER_ROUNDS = ({"worker0": 0, "worker1": 1}, {"worker0": 2, "worker1": 0})
+CLUSTER_POLICIES = {
+    "round_robin": {f"worker{w}->ps{p}": 1 for w in (0, 1) for p in (0, 1)},
+    "scheduler_least_loaded": {"worker0->ps0": 2, "worker1->ps0": 2}}
 # RWKV-6: the served model, its WKV kernel-test cases (tests/test_kernels.py:
 # BH, S, hs, chunk, with_u) at the reference's 1e-4, and the prefill shape
 # (batch x 32 heads, prompt, head size 64, the time mix's chunk 16)
@@ -182,6 +226,20 @@ ROWS = 8
 SUITE = [("p2p_latency", []), ("p2p_bandwidth", []),
          ("ps_throughput", ["--num-ps", "2", "--num-workers", "3"])]
 SUITE_TIMES = ["--warmup", "0.2", "--duration", "1"]
+# [sweep]: the paper's S/M/L generator across modes, and Qwen3-8B's rows
+# (58,818,560 B a row) on the ring, measured on the card, 8 cells
+SWEEPS = {
+    "p2p_latency mode x payload": ["--benchmark", "p2p_latency", "--sweep",
+                                   "mode,payload"],
+    "ring collective Qwen3-8B mode x stream_chunks": [
+        "--benchmark", "ring", "--transport", "collective", "--num-workers",
+        "4", "--arch", ARCH, "--sweep", "mode,stream_chunks"]}
+SWEEP_TIMES = ["--warmup", "0.2", "--duration", "0.5"]
+# [workload]: a seeded Poisson trace (the generator's flags) served on 1
+# ps x 2 workers (the serving flags, which the replay passes too)
+WORKLOAD_GEN = ["--workload", "poisson", "--rate", "200", "--duration-s",
+                "2"]
+WORKLOAD_SERVE = ["--num-workers", "2"]
 # Training at full width: Qwen3-8B cut to TRAIN_LAYERS of its 36 layers
 # (every width kept, as the reference's examples/train_ps_mode.py cuts a
 # config with dataclasses.replace), bf16 compute, fp32 masters, AdamW,
@@ -198,6 +256,20 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 4096, 2, 4
 # (NVIDIA H100 80GB HBM3, 700 W).
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL = 5e-5, 1.5e-4, 5e-2
 TRAIN_WQ_LAYER = 1
+# hubert-xlarge at full width and depth, seq 4096, batch 1, 2 steps. Its
+# attention is non-causal over random frames, so every row of its output
+# is close to the mean of v, and shifting the rows by one moves the loss
+# and the gradient norm about as much as the kernel's own bf16 rounding
+# does: loss 2.99e-5 sound / 3.31e-5 control, grad norm 9.76e-6 /
+# 5.18e-5 (NVIDIA H100 80GB HBM3, 700 W; on the mma.sync instance dh 80
+# had before it was padded to 128: loss 2.65e-5 / 6.02e-5, grad norm
+# 7.38e-5 / 4.32e-5). Only the wq gradient tells the two apart (0.00368 /
+# 0.0866), so the control is held by the wq bound alone, which lies
+# between; the loss and grad-norm bounds hold the sound run, 3x or more
+# above every sound reading.
+HUBERT_ARCH, HUBERT_STEPS = "hubert-xlarge", 2
+HUBERT_BOUNDS = (1e-4, 2.5e-4, 2e-2)
+HUBERT_CONTROL_BREAKS = (2,)
 # the reduced model in fp32, card against CPU: both fp32 throughout, so
 # they differ in summation order only
 TRAIN_FP32_TOL = 1e-4
@@ -207,13 +279,16 @@ TRAIN_FP32_TOL = 1e-4
 TRAIN_RESTART_TOL = 1e-5
 TRAIN_SMALL = ["--seq-len", "128", "--global-batch", "4"]
 # device kernels by kind, for [profile] (first match wins): the port's own
-# kernels, cuBLAS / CUTLASS products, then PyTorch's elementwise and
-# reduction kernels
+# kernels, cuBLAS / CUTLASS products, PyTorch's indexed gathers and
+# scatters (the collective transport's row permutations, embeddings),
+# then its elementwise and reduction kernels
 # (matched against the lower-cased kernel name)
 KERNEL_KINDS = (("K3", ("fa_fwd",)), ("K4", ("rwkv6_scan",)),
                 ("K1/K2", ("pp_kernel",)),
                 ("gemm", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
                           "sm90_")),
+                ("index", ("indexselect", "index_elementwise", "gather",
+                           "scatter")),
                 ("softmax", ("softmax",)), ("reduce", ("reduce",)),
                 ("elementwise", ("elementwise",)))
 
@@ -359,7 +434,9 @@ def phase_kernel(name: str) -> dict:
               f"{'+'.join(ran) or 'none'} max_abs_err={err:.3g} tol={tol} "
               f"{'ok' if ok else 'FAIL'}")
         if ran != [want] or (dtype == torch.bfloat16 and dh in (64, 128)
-                             and want != "wgmma"):
+                             and want != "wgmma") or (
+                dtype == torch.bfloat16 and dh in FA_NEW_HEAD_DIMS
+                and want != "wgmma"):
             raise AssertionError(f"flash kernel ran {ran} on {case} "
                                  f"{dtype}, not {want}")
         if not ok:
@@ -373,25 +450,36 @@ def phase_kernel(name: str) -> dict:
     for case in FA_WG_CASES:
         compare(case, torch.bfloat16)
         compare(case, torch.bfloat16, make=strided)
+    new_err = 0.0
+    for dh in FA_NEW_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in FA_CASES:
+                e, _ = compare(case[:4] + (dh,) + case[5:], dtype)
+                new_err = max(new_err, e)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_PADDED_CASES:
+            compare(case, dtype)
     main_case = (BATCH, PROMPT_LEN, 32, 8, 128, True, None, None)
     compare(main_case, torch.bfloat16, make=strided)
     err, (q, k, v) = compare(main_case, torch.bfloat16)
     path = kernel_path(q.dtype, q.shape[-1])
 
-    def times(label, q, k, v):
+    def times(label, q, k, v, causal=True):
         """Kernel / plain / SDPA at one shape, warm and L2 flushed."""
         import torch.nn.functional as F
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        calls = {"kernel": lambda: flash_attention(q, k, v, True),
-                 "plain": lambda: attention_plain(q, k, v, True),
+        calls = {"kernel": lambda: flash_attention(q, k, v, causal),
+                 "plain": lambda: attention_plain(q, k, v, causal),
                  "sdpa": lambda: F.scaled_dot_product_attention(
-                     qt, kt, vt, is_causal=True, enable_gqa=True)}
+                     qt, kt, vt, is_causal=causal, enable_gqa=True)}
         warm = {key: cuda_ms(fn) for key, fn in calls.items()}
         cold = {key: gpu_ms(fn) for key, fn in calls.items()}
-        bound_ms, bound_by = attention_bound(q, k, v, True, None)
+        bound_ms, bound_by = attention_bound(q, k, v, causal, None)
+        kpath = kernel_path(q.dtype, q.shape[-1])
         for how, t in (("warm", warm), ("L2 flushed", cold)):
-            print(f"[kernel] {label} q{tuple(q.shape)} bf16 causal on "
-                  f"{name}, {how}: kernel ({path}) {t['kernel']:.4f} ms, "
+            print(f"[kernel] {label} q{tuple(q.shape)} kv {k.shape[2]} "
+                  f"bf16 {'causal' if causal else 'non-causal'} on "
+                  f"{name}, {how}: kernel ({kpath}) {t['kernel']:.4f} ms, "
                   f"attention_plain {t['plain']:.4f} ms, SDPA "
                   f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by})")
@@ -405,18 +493,34 @@ def phase_kernel(name: str) -> dict:
     del q, k, v
     train_case = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, True, None, None)
     train_err, (q, k, v) = compare(train_case, torch.bfloat16)
-    tile_err = tile_check(name, q, k, v)
+    tile_err = tile_check(name, "Qwen3-8B training",
+                          flash_attention(q, k, v, True), q, k, v, True)
     training = {"shape": f"q{tuple(q.shape)} bf16 causal",
                 "max_abs_err": train_err, "tile_rel_err": tile_err,
                 **times("Qwen3-8B training", q, k, v)}
     del q, k, v
     torch.cuda.empty_cache()
+    head_dims = {}
+    for arch, (B, S, H, KV, dh, causal) in FA_HEAD_DIM_SHAPES.items():
+        e, (q, k, v) = compare((B, S, H, KV, dh, causal, None, None),
+                               torch.bfloat16)
+        tile = tile_check(name, arch, flash_attention(q, k, v, causal),
+                          q, k, v, causal)
+        head_dims[arch] = {
+            "shape": f"q{tuple(q.shape)} kv {KV} bf16 "
+                     f"{'causal' if causal else 'non-causal'}",
+            "path": kernel_path(q.dtype, dh), "max_abs_err": e,
+            "tile_rel_err": tile,
+            **times(arch, q, k, v, causal)}
+        del q, k, v
+        torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda", "path": path,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces":
                 "src/repro/kernels/flash_attention/flash_attention.py:77",
             "max_abs_err": max(err, train_err), **serving,
-            "training_shape": training}
+            "training_shape": training, "head_dims": head_dims,
+            "head_dims_80_112_max_abs_err": new_err}
 
 
 def tile_rel(out: torch.Tensor, ref: torch.Tensor):
@@ -434,50 +538,53 @@ def tile_rel(out: torch.Tensor, ref: torch.Tensor):
                                                      r.shape))
 
 
-def tile_check(name: str, q, k, v) -> float:
-    """K3 at the training shape against plain per q tile (TILE_REL_TOL),
-    and two controls the bound must catch, computed by SDPA under a wrong
-    mask: one KV tile (keys S-1024 .. S-897) dropped for every row after
-    it, and the last q tile seeing one key past the causal edge."""
+def tile_check(name: str, label: str, out, q, k, v, causal: bool) -> float:
+    """K3's output ``out`` on q, k, v against plain per q tile
+    (TILE_REL_TOL), and the controls the bound must catch, computed by
+    SDPA under a wrong mask: the KV tile of TILE_DROP keys S-1024 ..
+    S-1024+TILE_DROP-1 dropped (for the rows after it where causal, for
+    every row where not), and, where causal, the last q tile seeing one
+    key past the causal edge."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (attention_plain,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import attention_plain
     S, G = q.shape[1], q.shape[2] // k.shape[2]
-    out = flash_attention(q, k, v, True)
-    ref = attention_plain(q, k, v, True)
+    ref = attention_plain(q, k, v, causal)
     sound, at = tile_rel(out, ref)
-    del out
     i = torch.arange(S, device=q.device)
-    causal = i[:, None] >= i[None, :]
-    lo = S - 1024
-    masks = {
-        f"keys {lo}-{lo + TILE - 1} dropped from row {lo + TILE} on":
-            causal & ~((i[None, :] >= lo) & (i[None, :] < lo + TILE)
-                       & (i[:, None] >= lo + TILE)),
-        f"rows from {S - TILE} on seeing key i+1":
-            causal | ((i[None, :] == i[:, None] + 1)
-                      & (i[:, None] >= S - TILE))}
+    allowed = i[:, None] >= i[None, :] if causal else \
+        torch.ones(S, S, dtype=torch.bool, device=q.device)
+    lo, hi = S - 1024, S - 1024 + TILE_DROP
+    dropped = (i[None, :] >= lo) & (i[None, :] < hi)
+    masks = {f"keys {lo}-{hi - 1} dropped"
+             f"{f' from row {hi} on' if causal else ''}":
+                 allowed & ~(dropped & (i[:, None] >= hi) if causal
+                             else dropped)}
+    if causal:
+        masks[f"rows from {S - TILE} on seeing key i+1"] = allowed | (
+            (i[None, :] == i[:, None] + 1) & (i[:, None] >= S - TILE))
     qt, kt, vt = (t.transpose(1, 2) for t in
                   (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
     controls = {}
-    for label, mask in masks.items():
+    for what, mask in masks.items():
         wrong = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        controls[label] = tile_rel(wrong.transpose(1, 2), ref)
+        controls[what] = tile_rel(wrong.transpose(1, 2), ref)
         del wrong
-    print(f"[kernel] Qwen3-8B training q{tuple(q.shape)} bf16 causal, per "
-          f"(batch, q tile of {TILE}, head) mean|kernel - plain| / "
-          f"mean|plain|: max {sound:.3g} at {at} (bound {TILE_REL_TOL}) "
-          f"on {name}")
-    for label, (r, where) in controls.items():
-        print(f"[kernel] control, {label}: {r:.3g} at {where} "
+    del ref, qt, kt, vt
+    print(f"[kernel] {label} q{tuple(q.shape)} kv {k.shape[2]} bf16 "
+          f"{'causal' if causal else 'non-causal'}, per (batch, q tile of "
+          f"{TILE}, head) mean|kernel - plain| / mean|plain|: max "
+          f"{sound:.3g} at {at} (bound {TILE_REL_TOL}) on {name}")
+    for what, (r, where) in controls.items():
+        print(f"[kernel] {label} control, {what}: {r:.3g} at {where} "
               f"({'caught' if r > TILE_REL_TOL else 'NOT caught'})")
     if sound > TILE_REL_TOL:
-        raise AssertionError(f"flash kernel at the training shape: tile "
+        raise AssertionError(f"flash kernel at the {label} shape: tile "
                              f"error {sound} beyond {TILE_REL_TOL}")
     missed = [c for c, (r, _) in controls.items() if r <= TILE_REL_TOL]
     if missed:
-        raise AssertionError(f"the tile bound misses the controls {missed}")
+        raise AssertionError(f"{label}: the tile bound misses the controls "
+                             f"{missed}")
     return sound
 
 
@@ -803,6 +910,133 @@ def phase_suite(name: str) -> dict:
     return total
 
 
+def phase_sweep(name: str) -> dict:
+    """``bench_comm --sweep`` on the card: SWEEPS, each cell one bench run
+    with the pack / unpack counts set to 0 just before it and read just
+    after (by wrapping ``core.bench.run``, which the sweep looks
+    up at every cell). No cell may report an error; serialized cells must
+    launch K1 at least once an iteration (and K2 as often, where the
+    family unpacks), other cells neither. Then one serialized Qwen3-8B
+    cell under torch.profiler: the suite's device busy share and an
+    iteration's device time by kernel kind. Returns the launches summed
+    over the phase."""
+    from repro_torch.configs.tfgrpc_bench import BenchConfig
+    from repro_torch.core import bench
+    from repro_torch.core.payload import from_arch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.payload_pack import ops as pp
+    from repro_torch.launch import bench_comm
+    total = {"payload_pack": 0, "payload_unpack": 0}
+    counts = []
+    run = bench.run
+
+    def counted(cfg, device="cuda"):
+        pp.pack.launches = pp.unpack.launches = 0
+        try:
+            return run(cfg, device)
+        finally:
+            counts.append((pp.pack.launches, pp.unpack.launches))
+
+    bench.run = counted
+    try:
+        for label, argv in SWEEPS.items():
+            del counts[:]
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rows = bench_comm.main(argv + SWEEP_TIMES)
+            dt = time.perf_counter() - t0
+            print(f"[sweep] {label}: {len(rows)} cells in {dt:.1f} s on "
+                  f"{name}")
+            if len(counts) != len(rows):
+                raise AssertionError(f"[sweep] {label}: {len(counts)} runs "
+                                     f"for {len(rows)} rows")
+            for row, (k1, k2) in zip(rows, counts):
+                cell = ", ".join(f"{c}={row[c]}" for c in
+                                 ("mode", "payload", "stream_chunks")
+                                 if c in row)
+                if "error" in row:
+                    raise AssertionError(f"[sweep] {label} {cell}: "
+                                         f"{row['error']}")
+                total["payload_pack"] += k1
+                total["payload_unpack"] += k2
+                print(f"[sweep] {label} {cell}: {row['metric']} = "
+                      f"{row['value']:.6g}, mean {row['mean_us']:.1f} us "
+                      f"over {row['n_iters']} iters, pack launches {k1}, "
+                      f"unpack launches {k2}")
+                if row["mode"] == "serialized":
+                    want_k2 = 0 if row["benchmark"] == "p2p_bandwidth" \
+                        else k1
+                    if k1 < row["n_iters"] or k2 != want_k2:
+                        raise AssertionError(
+                            f"[sweep] {label} {cell}: pack {k1}, unpack "
+                            f"{k2} for {row['n_iters']} timed iterations")
+                elif k1 or k2:
+                    raise AssertionError(f"[sweep] {label} {cell}: "
+                                         f"non-serialized cell launched "
+                                         f"pack {k1} / unpack {k2}")
+    finally:
+        bench.run = run
+
+    # the suite's device busy share: one serialized Qwen3-8B cell
+    cfg = BenchConfig(benchmark="ring", transport="collective",
+                      num_workers=4, stream_chunks=4, mode="serialized",
+                      payload_spec=from_arch(get_config(ARCH)),
+                      warmup_s=0.0, duration_s=0.3)
+    prof = {}
+    st = profiled(name, "suite: ring collective serialized Qwen3-8B rows, "
+                  "4 workers, 4 chunks", lambda: bench.run(cfg, "cuda"),
+                  stats=prof)
+    if prof:
+        iters = st.n_iters + 1              # and the untimed first call
+        print(f"[sweep] device busy {100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+              f" % of the run's wall time; one iteration's device time by "
+              f"kind ({iters} iterations): "
+              + ", ".join(f"{k} {v / iters:.4f} ms" for k, v in sorted(
+                  prof["kinds"].items(), key=lambda kv: -kv[1]))
+              + f"; mean {1e3 * st.mean_s:.4f} ms an iteration on the host "
+              f"clock")
+    return total
+
+
+def phase_workload(name: str) -> None:
+    """``bench_comm --workload``: a seeded Poisson trace recorded with
+    --trace-out, then replayed with --workload trace; the two rows must be
+    identical and every request resolved. Host only by design, as in the
+    reference: the synthetic engine runs no model on the device."""
+    import tempfile
+    from repro_torch.launch import bench_comm
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/trace.json"
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            first = bench_comm.main(WORKLOAD_GEN + WORKLOAD_SERVE
+                                    + ["--trace-out", trace])
+            t1 = time.perf_counter()
+            again = bench_comm.main(["--workload", "trace", "--trace-in",
+                                     trace] + WORKLOAD_SERVE)
+        t2 = time.perf_counter()
+    slo = first[0]["slo"]
+    print(f"[workload] {' '.join(WORKLOAD_GEN + WORKLOAD_SERVE)}: "
+          f"{first[0]['events']} "
+          f"events; ok {slo['completed_ok']}, errors {slo['errors']}, "
+          f"deadline_exceeded {slo['deadline_exceeded']}, shed {slo['shed']}"
+          f"; ttft p50 {1e3 * slo['ttft_s']['p50']:.3f} / p99 "
+          f"{1e3 * slo['ttft_s']['p99']:.3f} ms, e2e p99 "
+          f"{1e3 * slo['e2e_s']['p99']:.3f} ms (modeled clock); "
+          f"{t1 - t0:.2f} s, replay {t2 - t1:.2f} s on the host: host only "
+          f"by design (the synthetic engine runs no model; nothing on "
+          f"{name})")
+    if again != first:
+        raise AssertionError("[workload] the replayed trace's row differs")
+    if slo["completed_ok"] + slo["errors"] + slo["deadline_exceeded"] \
+            != slo["offered"] or slo["offered"] != first[0]["events"]:
+        raise AssertionError(f"[workload] unresolved requests: {slo}")
+    print("[workload] --trace-out then --workload trace --trace-in: rows "
+          "identical")
+
+
 def phase_chain(name: str) -> None:
     """Channels on the card equal the same channels on CPU rows, byte
     for byte, then the committed modeled baseline checks clean."""
@@ -847,11 +1081,13 @@ def phase_chain(name: str) -> None:
     print(f"[chain] {log.getvalue().strip()}")
 
 
-def phase_serve(name: str, args: list, kernel, layers: int) -> int:
+def phase_serve(name: str, args: list, kernel, layers: int) -> dict:
     """One main path: the serve CLI with ``args`` over streaming RPC,
     unary RPC and direct calls, with every kernel's count set to 0 just
-    before and read just after; returns ``kernel``'s launches, which
-    must be ``layers`` per prefill."""
+    before and read just after. Returns ``kernel``'s launches, which
+    must be ``layers`` per prefill ("launches"), the direct path's
+    engine ("engine", its weights reused by [cluster]) and its tokens
+    ("direct", one (BATCH, NEW_TOKENS) array a request)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -887,6 +1123,7 @@ def phase_serve(name: str, args: list, kernel, layers: int) -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"on {name}")
         outputs[label] = res["outputs"]
+        kept = eng
         del res, eng, ops
         gc.collect()      # the engine and its schedulers refer to each other
         torch.cuda.empty_cache()
@@ -914,7 +1151,84 @@ def phase_serve(name: str, args: list, kernel, layers: int) -> int:
     print(f"[serve] {arch} {kernel.__name__} launches "
           f"{launches[kernel.__name__]} = {layers} x {prefills} prefills "
           f"(all launches: {launches}; flash by path: {by_path})")
-    return launches[kernel.__name__]
+    return {"launches": launches[kernel.__name__], "engine": kept,
+            "direct": outputs["direct"]}
+
+
+def phase_cluster(name: str, served: dict) -> int:
+    """Cluster serving of Qwen3-8B at full width, on the weights [serve]
+    drew: a ``ps_worker_cluster(2, 2)`` on RDMA, 2 rounds in which each
+    worker streams one request (the serve CLI's prompts, batch 4) in the
+    same flush, under each of CLUSTER_POLICIES. Every worker's greedy
+    tokens must equal the direct path's for its prompts, K3 must launch
+    36 times a prefill, all on wgmma (the counts set to 0 just before
+    each policy's rounds and read just after), and the dispatch counts
+    per link must be the policy's. Returns K3's launches."""
+    import numpy as np
+
+    from repro_torch import rpc as rpclib
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve.engine import ServeEngine, decode_token_chunk
+    kept = served["engine"]
+    layers = kept.acfg.model.num_layers
+    rng = np.random.default_rng(0)         # the serve CLI's prompts
+    vocab = kept.acfg.model.vocab_size
+    prompts = [rng.integers(0, vocab, (BATCH, PROMPT_LEN), dtype=np.int32)
+               for _ in range(REQUESTS)]
+    total = 0
+    for policy, want_links in CLUSTER_POLICIES.items():
+        cluster = rpclib.ps_worker_cluster(2, 2, ps_network="rdma_edr")
+        metrics = rpclib.MetricsInterceptor(per_endpoint=True,
+                                            endpoint_name=cluster.name_of)
+        eng = ServeEngine(kept.acfg, kept.params, kept.cfg)
+        fabric, stubs = eng.serve_cluster(
+            cluster, policy=policy, client_interceptors=[metrics],
+            server_interceptors=[metrics])
+        flash_attention.launches = 0
+        flash_attention.launches_by_path = dict.fromkeys(
+            flash_attention.launches_by_path, 0)
+        for rnd, picks in enumerate(CLUSTER_ROUNDS):
+            t0 = time.perf_counter()
+            calls = {w: stubs[w].generate_stream(prompts[i])
+                     for w, i in picks.items()}
+            fabric.flush()              # both workers' requests, one loop
+            outs = {w: np.stack([decode_token_chunk(c) for c in h.result()],
+                                axis=1) for w, h in calls.items()}
+            dt = time.perf_counter() - t0
+            toks = sum(o.size for o in outs.values())
+            print(f"[cluster] Qwen3-8B {policy} round {rnd}: "
+                  f"{1e3 * dt:.1f} ms ({toks / dt:.1f} tok/s aggregate, "
+                  f"{len(outs)} workers x batch {BATCH} x {NEW_TOKENS} "
+                  f"tokens), modeled clock {1e3 * fabric.now():.3f} ms on "
+                  f"{name}")
+            for w, i in picks.items():
+                if outs[w].shape != (BATCH, NEW_TOKENS) or not (
+                        outs[w] == served["direct"][i]).all():
+                    raise AssertionError(f"[cluster] {policy} round {rnd} "
+                                         f"{w}: tokens differ from the "
+                                         f"direct path's")
+        prefills = len(eng.op_seconds["prefill"])
+        by_path = dict(flash_attention.launches_by_path)
+        links = {k.split("@")[1]: v["calls"]
+                 for k, v in metrics.snapshot().items()
+                 if k.startswith("Serve/generate_stream@")}
+        print(f"[cluster] Qwen3-8B {policy}: greedy tokens of every worker "
+              f"equal the direct path's; dispatch per link {links}; flash "
+              f"launches {flash_attention.launches} = {layers} x {prefills} "
+              f"prefills (by path {by_path})")
+        if prefills != sum(len(p) for p in CLUSTER_ROUNDS) or \
+                flash_attention.launches != layers * prefills or \
+                by_path["wgmma"] != flash_attention.launches:
+            raise AssertionError(f"[cluster] {policy}: flash launches "
+                                 f"{by_path} for {prefills} prefills")
+        if links != want_links:
+            raise AssertionError(f"[cluster] {policy}: dispatch per link "
+                                 f"{links}, the policy says {want_links}")
+        total += flash_attention.launches
+        del eng, fabric, stubs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
@@ -940,10 +1254,13 @@ def profile_steps(name: str, acfg, params, tokens, n_decode: int = 8):
         profiled(name, f"{acfg.model.name} {label}", fn)
 
 
-def profiled(name: str, label: str, fn, top_n: int = 4):
+def profiled(name: str, label: str, fn, top_n: int = 4,
+             stats: dict = None):
     """Run ``fn`` once under torch.profiler and print its device busy
     share (CUDA kernel time over host wall time) and the kernels that
-    take most of the device time; returns what ``fn`` returns."""
+    take most of the device time; returns what ``fn`` returns. ``stats``,
+    where given, receives wall_ms, busy_ms, launches and the device ms
+    by kernel kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -969,6 +1286,9 @@ def profiled(name: str, label: str, fn, top_n: int = 4):
         kind = next((k for k, words in KERNEL_KINDS if any(
             w in a.key.lower() for w in words)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + a.self_device_time_total / 1e3
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms, kinds=kinds,
+                     launches=sum(a.count for a in avgs))
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(a.count for a in avgs)} kernel launches; by kind: "
@@ -1149,11 +1469,18 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_full(name: str) -> int:
-    """Qwen3-8B at full width, TRAIN_LAYERS layers: the first step with
-    the flash kernel on and off (and a control), then TRAIN_STEPS steps
-    of the port's Trainer, the main path, with the launch counts set to
-    0 just before and read just after. Returns K3's launches there."""
+def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
+                     n_steps: int, path: str, bounds: tuple,
+                     breaks: tuple = (0, 1, 2)):
+    """``arch`` at full width (cut to ``layers`` layers where not None):
+    the first step with the flash kernel on and off within ``bounds``
+    (loss, gradient norm, a ``wq`` gradient), and the control (the
+    kernel's output rows shifted by one position), which must break the
+    bounds indexed by ``breaks``; then ``n_steps`` steps of
+    the port's Trainer, the main path, with the launch counts set to 0
+    just before and read just after: K3 must launch twice a layer a step
+    (forward and remat's recompute), all on ``path``. Returns (acfg,
+    shape, trainer, params, opt, K3's launches)."""
     import dataclasses
 
     from repro_torch.data.pipeline import device_batch, host_batch
@@ -1164,12 +1491,14 @@ def phase_train_full(name: str) -> int:
     from repro_torch.optim import optimizer as O
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    base = train_config(ARCH, reduced=False, device="cuda")
-    acfg = base.replace(model=dataclasses.replace(base.model,
-                                                  num_layers=TRAIN_LAYERS))
-    shape = train_shape(TRAIN_SEQ, TRAIN_BATCH)
+    acfg = train_config(arch, reduced=False, device="cuda")
+    if layers is not None:
+        acfg = acfg.replace(model=dataclasses.replace(acfg.model,
+                                                      num_layers=layers))
+    what = f"{acfg.model.name} {acfg.model.num_layers} layers"
+    shape = train_shape(seq, batch_size)
     n_params = acfg.model.num_params()
-    trainer = Trainer(acfg, shape, TrainerConfig(total_steps=TRAIN_STEPS,
+    trainer = Trainer(acfg, shape, TrainerConfig(total_steps=n_steps,
                                                  log_every=0), device="cuda")
     params, opt, _ = trainer.init_state(0)
     batch = device_batch(host_batch(acfg, shape, 0, trainer.dcfg), "cuda")
@@ -1202,26 +1531,28 @@ def phase_train_full(name: str) -> int:
     def readings(r):
         return (abs(r[0] - plain[0]) / abs(plain[0]),
                 abs(r[1] - plain[1]) / abs(plain[1]), rel(r[2], plain[2]))
-    bounds = (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL)
     sound, control = readings(kern), readings(wrong)
-    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers at full width "
-          f"({n_params} params), seq {TRAIN_SEQ}, batch {TRAIN_BATCH}, step "
-          f"0 kernel vs plain: loss {kern[0]:.6f} / {plain[0]:.6f} (rel "
-          f"{sound[0]:.3g}, bound {bounds[0]}), grad norm {kern[1]:.6g} / "
-          f"{plain[1]:.6g} (rel {sound[1]:.3g}, bound {bounds[1]}), layer "
-          f"{TRAIN_WQ_LAYER} wq grad max|diff|/max|plain| {sound[2]:.3g} "
-          f"(bound {bounds[2]}) on {name}")
-    caught = all(r > b for r, b in zip(control, bounds))
-    print(f"[train] control, the kernel's output rows shifted by one "
+    print(f"[train] {what} at full width ({n_params} params), seq {seq}, "
+          f"batch {batch_size}, step 0 kernel vs plain: loss {kern[0]:.6f} "
+          f"/ {plain[0]:.6f} (rel {sound[0]:.3g}, bound {bounds[0]}), grad "
+          f"norm {kern[1]:.6g} / {plain[1]:.6g} (rel {sound[1]:.3g}, bound "
+          f"{bounds[1]}), layer {TRAIN_WQ_LAYER} wq grad "
+          f"max|diff|/max|plain| {sound[2]:.3g} (bound {bounds[2]}) on "
+          f"{name}")
+    caught = all(control[i] > bounds[i] for i in breaks)
+    names = ", ".join(("loss", "grad norm", "wq")[i] for i in breaks)
+    print(f"[train] {what} control, the kernel's output rows shifted by one "
           f"position, vs plain: loss rel {control[0]:.3g}, grad norm rel "
           f"{control[1]:.3g}, wq grad {control[2]:.3g} "
-          f"({'caught by each bound' if caught else 'NOT caught by each'})")
+          f"({'caught' if caught else 'NOT caught'} by the {names} "
+          f"bound{'s' if len(breaks) > 1 else ''})")
     if any(r > b for r, b in zip(sound, bounds)):
-        raise AssertionError(f"training step 0, kernel vs plain: {sound} "
-                             f"beyond {bounds}")
+        raise AssertionError(f"{what} training step 0, kernel vs plain: "
+                             f"{sound} beyond {bounds}")
     if not caught:
-        raise AssertionError(f"the training bounds {bounds} do not each "
-                             f"catch the shifted kernel output {control}")
+        raise AssertionError(f"{what}: the {names} bounds of {bounds} do "
+                             f"not each catch the shifted kernel output "
+                             f"{control}")
     # the train step is functional: params and opt held here would stay
     # alive beside every step's own, so the Trainer draws them again
     del kern, plain, wrong, params, opt, batch
@@ -1244,30 +1575,38 @@ def phase_train_full(name: str) -> int:
                      for a, b in zip(per_step, per_step[1:])]
     losses = [r.loss for r in trainer.history]
     for r, n in zip(trainer.history, step_launches):
-        print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers step {r.step}: "
-              f"{1e3 * r.wall_s:.1f} ms, loss {r.loss:.6f}, flash launches "
-              f"by path {n} on {name}")
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+        print(f"[train] {what} step {r.step}: {1e3 * r.wall_s:.1f} ms, loss "
+              f"{r.loss:.6f}, flash launches by path {n} on {name}")
+    tokens = seq * batch_size
     steady = [r.wall_s for r in trainer.history[1:]]
-    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers: steps 1-"
-          f"{TRAIN_STEPS - 1} mean {1e3 * sum(steady) / len(steady):.1f} ms "
+    print(f"[train] {what}: steps 1-{n_steps - 1} mean "
+          f"{1e3 * sum(steady) / len(steady):.1f} ms "
           f"({tokens * len(steady) / sum(steady):.0f} tok/s), "
           f"max_memory_allocated {peak:.2f} GiB, flash launches {launches} "
           f"(by path {by_path}), WKV launches {rwkv6_scan.launches} on "
           f"{name}")
     if not all(torch.isfinite(torch.tensor(losses))) or \
-            len(losses) != TRAIN_STEPS:
-        raise AssertionError(f"training losses {losses}")
-    want = 2 * TRAIN_LAYERS
-    if any(n != {"wgmma": want} for n in step_launches) or \
+            len(losses) != n_steps:
+        raise AssertionError(f"{what} training losses {losses}")
+    want = 2 * acfg.model.num_layers
+    if any(n != {path: want} for n in step_launches) or \
             rwkv6_scan.launches:
-        raise AssertionError(f"flash launches per step {step_launches}, "
-                             f"not {want} on wgmma (forward and remat's "
-                             f"recompute of each layer)")
-    # one more step outside the counted run: its two halves on CUDA
-    # events, then the whole step under the profiler
-    batch = device_batch(host_batch(acfg, shape, TRAIN_STEPS, trainer.dcfg),
-                         "cuda")
+        raise AssertionError(f"{what}: flash launches per step "
+                             f"{step_launches}, not {want} on {path} "
+                             f"(forward and remat's recompute of each "
+                             f"layer)")
+    return acfg, shape, trainer, params, opt, launches
+
+
+def step_breakdown(name: str, acfg, shape, trainer, params, opt,
+                   step: int) -> None:
+    """One more step outside the counted run (data of ``step``): its two
+    halves on CUDA events, then the whole step under the profiler."""
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizer as O
+    what = f"{acfg.model.name} {acfg.model.num_layers} layers"
+    batch = device_batch(host_batch(acfg, shape, step, trainer.dcfg), "cuda")
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     events[0].record()
     _, grads = steps.loss_and_grads(steps.make_loss_fn(acfg), params, batch)
@@ -1276,15 +1615,39 @@ def phase_train_full(name: str) -> int:
         updated = O.apply_updates(acfg.train, params, grads, opt)
     events[2].record()
     torch.cuda.synchronize()
-    print(f"[train] Qwen3-8B {TRAIN_LAYERS} layers, one step's halves on "
-          f"CUDA events: loss and gradients "
-          f"{events[0].elapsed_time(events[1]):.1f} ms, AdamW update "
-          f"{events[1].elapsed_time(events[2]):.1f} ms on {name}")
+    print(f"[train] {what}, one step's halves on CUDA events: loss and "
+          f"gradients {events[0].elapsed_time(events[1]):.1f} ms, AdamW "
+          f"update {events[1].elapsed_time(events[2]):.1f} ms on {name}")
     del grads, updated
     _free()
-    profiled(name, f"Qwen3-8B {TRAIN_LAYERS} layers one train step",
+    profiled(name, f"{what} one train step",
              lambda: trainer.step_fn(params, opt, batch)[2]["loss"], top_n=6)
-    del params, opt, trainer, batch
+
+
+def phase_train_full(name: str) -> int:
+    """Qwen3-8B at full width, TRAIN_LAYERS layers (``train_full_width``),
+    then one more step's halves on CUDA events and under the profiler.
+    Returns K3's launches on the main path."""
+    acfg, shape, trainer, params, opt, launches = train_full_width(
+        name, ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS,
+        "wgmma", (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
+    step_breakdown(name, acfg, shape, trainer, params, opt, TRAIN_STEPS)
+    del params, opt, trainer
+    _free()
+    return launches
+
+
+def phase_train_hubert(name: str) -> int:
+    """hubert-xlarge at full width and depth (48 layers of 16 heads of 80,
+    about 1 B parameters, AdamW), through the train CLI's config: K3 on
+    its wgmma path (dh padded to 128) in every layer's forward and
+    remat's recompute; then one more step's breakdown. Returns K3's
+    launches on the main path."""
+    acfg, shape, trainer, params, opt, launches = train_full_width(
+        name, HUBERT_ARCH, None, TRAIN_SEQ, 1, HUBERT_STEPS, "wgmma",
+        HUBERT_BOUNDS, HUBERT_CONTROL_BREAKS)
+    step_breakdown(name, acfg, shape, trainer, params, opt, HUBERT_STEPS)
+    del params, opt, trainer
     _free()
     return launches
 
@@ -1420,19 +1783,28 @@ def main() -> int:
     kernel = phase_kernel(name)
     wkv = phase_wkv(name)
     packs = phase_pack(name)
-    kernel["launches"] = phase_serve(name, SERVE_ARGS, flash_attention, 36)
+    served = phase_serve(name, SERVE_ARGS, flash_attention, 36)
+    by_path = {"serve": served["launches"],
+               "cluster": phase_cluster(name, served)}
+    del served
+    _free()
     phase_e2e(name)
-    wkv["launches"] = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan, 24)
+    wkv["launches"] = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan,
+                                  24)["launches"]
     phase_e2e_rwkv(name)
     _free()
-    train_launches = phase_train_full(name)
-    kernel["launches_by_main_path"] = {"serve": kernel["launches"],
-                                       "train": train_launches}
-    kernel["launches"] += train_launches
+    by_path["train"] = phase_train_full(name)
+    by_path["train_hubert"] = phase_train_hubert(name)
+    kernel["launches_by_main_path"] = by_path
+    kernel["launches"] = sum(by_path.values())
     phase_train_small(name)
     launches = phase_suite(name)
+    swept = phase_sweep(name)
     for entry in packs:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches"] = launches[entry["name"]] + swept[entry["name"]]
+        entry["launches_by_main_path"] = {"suite": launches[entry["name"]],
+                                          "sweep": swept[entry["name"]]}
+    phase_workload(name)
     phase_chain(name)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(name)

@@ -66,7 +66,8 @@
 //   32-key tile against the warp's rows (K transposed in shared memory, q
 //   broadcast as float4). P @ V: lane owns output columns lane, lane + 32, ...
 //   and reads P back as broadcast float4. Bound by fp32 FMA issue and
-//   shared-memory reads.
+//   shared-memory reads. Where DH is not a multiple of 32 (16) the last
+//   group of output columns is partial and its lanes past DH idle.
 //
 // C interface (loaded with ctypes): fa_fwd(...) launches on the given stream,
 // allocates nothing, and returns cudaGetLastError().
@@ -219,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int d = lane + 32 * c;
-        if (DH >= 32 || d < DH) {
+        if (DH % 32 == 0 || d < DH) {
           const float v0 = Vs[(j + 0) * DH + d];
           const float v1 = Vs[(j + 1) * DH + d];
           const float v2 = Vs[(j + 2) * DH + d];
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
-      if (DH >= 32 || d < DH)
+      if (DH % 32 == 0 || d < DH)
         og[qpos * p.o_ss + d] = acc[r][c] / denom;
     }
   }

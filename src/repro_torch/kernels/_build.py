@@ -30,6 +30,11 @@ build_seconds: Dict[str, float] = {}
 build_log: Dict[str, str] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port that did not build or that the card refused
+    to launch."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     cands = [shutil.which("nvcc")]
@@ -38,7 +43,7 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: building the port's CUDA kernels "
+    raise KernelError("nvcc not found: building the port's CUDA kernels "
                        "needs the CUDA toolkit (set CUDA_HOME)")
 
 
@@ -62,7 +67,7 @@ def build(name: str) -> Path:
     build_seconds[name] = time.perf_counter() - t0
     build_log[name] = proc.stdout
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise KernelError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
     return out

@@ -5,7 +5,13 @@ On a CPU tensor it computes ``attention_plain``; on a CUDA tensor it
 launches the hand-written Hopper kernel (``csrc/flash_attention.cu``)
 or raises. The kernel has three paths, chosen by ``kernel_path`` from
 the dtype and head dim alone: wgmma fed by TMA (bf16, dh 64 / 128),
-mma.sync (other bf16 head dims) and SIMT (fp32). The backward
+mma.sync (other bf16 head dims) and SIMT (fp32). It is built for the
+head dims of ``_HEAD_DIMS``; any other dh up to 256 is zero-padded to
+the next of them (zero q and k columns leave q k^T unchanged, the scale
+stays 1/sqrt(dh) of the real dh, and v's padded columns are sliced off
+the output): hubert-xlarge's dh 80 and kimi-k2's 112 run as 128, in
+bf16 on wgmma, which takes them in well under half the time an mma.sync
+instance of their own took. The backward
 recomputes through ``attention_plain`` under autograd, as the
 reference's custom VJP recomputes through ``attention_ref``; the
 forward kernel is what serving runs.
@@ -16,25 +22,40 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims csrc/flash_attention.cu is instantiated for
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the kernels of csrc/flash_attention.cu, by the code its C entry takes
 PATHS = {"simt": 0, "mma": 1, "wgmma": 2}
 
 
+def padded_head_dim(dh: int) -> int:
+    """The instance that runs head dim ``dh``: the least of
+    ``_HEAD_DIMS`` that is >= dh (the input is zero-padded up to it).
+    Raises ``ValueError`` above 256, which no config uses."""
+    for inst in _HEAD_DIMS:
+        if inst >= dh:
+            return inst
+    raise ValueError(f"flash_attention: head dim {dh} > "
+                     f"{_HEAD_DIMS[-1]}, the largest the kernel takes")
+
+
 def kernel_path(dtype: torch.dtype, dh: int) -> str:
     """The kernel that runs (dtype, dh): "wgmma" (bf16, dh 64 or 128:
-    wgmma fed by TMA), "mma" (bf16, other head dims: mma.sync) or "simt"
-    (fp32 on the CUDA cores; TF32 would miss the reference's 2e-5). The
-    choice depends on nothing else, and a launch the chosen kernel
-    refuses raises: no path stands in for another."""
+    wgmma fed by TMA), "mma" (bf16, other head dims: mma.sync) or
+    "simt" (fp32 on the CUDA cores; TF32 would miss the reference's
+    2e-5). dh is first padded to its instance (``padded_head_dim``: 48
+    runs as 64 and 80, 96 or 112 as 128, all on wgmma in bf16; 200 as
+    256 on mma). The choice depends on nothing else, and a launch the chosen
+    kernel refuses raises: no path stands in for another."""
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if dh in (64, 128) else "mma"
+    return "wgmma" if padded_head_dim(dh) in (64, 128) else "mma"
 
 
 _fa_fwd = None
@@ -80,16 +101,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not "
                          f"form (B, Sq, H, dh) / (B, Skv, KV, dh), KV | H")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{_HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if B * H > 65535:
         raise ValueError(f"flash_attention: B * H = {B * H} > 65535")
 
 
+def padded(fn, q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+    """``fn`` (the launch, or ``attention_plain`` in the CPU tests) on
+    q, k and v zero-padded in dh up to ``padded_head_dim(dh)``, with
+    ``scale`` passed as it is (1/sqrt of the real dh), and the padded
+    output columns sliced off."""
+    dh = q.shape[-1]
+    inst = padded_head_dim(dh)
+    q, k, v = (F.pad(t, (0, inst - dh)) for t in (q, k, v))
+    return fn(q, k, v, causal, window, softcap, scale)[..., :dh].contiguous()
+
+
 def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+    if padded_head_dim(q.shape[-1]) != q.shape[-1]:
+        return padded(_launch, q, k, v, causal, window, softcap, scale)
     _check(q, k, v, window)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -106,8 +137,8 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
             float(softcap) if softcap is not None else 0.0,
             float(scale), _DTYPES[q.dtype], PATHS[path], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"({path} path): cudaError {err}")
+        raise _build.KernelError(f"flash_attention kernel launch failed "
+                                 f"({path} path): cudaError {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
     return o

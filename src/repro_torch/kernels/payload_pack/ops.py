@@ -99,8 +99,8 @@ def _launch(name: str, packed: torch.Tensor, bufs: Sequence[torch.Tensor],
         err = _kernel(name)(packed.data_ptr(), packed.stride(0), total, rows,
                             len(bufs), table, stream)
     if err != 0:
-        raise RuntimeError(f"payload_pack {name} launch failed: "
-                           f"cudaError {err}")
+        raise _build.KernelError(f"payload_pack {name} launch failed: "
+                                 f"cudaError {err}")
     return True
 
 

@@ -100,8 +100,8 @@ def _launch(r, k, v, log_w, s0, chunk: int
                         log_w.data_ptr(), s0.data_ptr(), y.data_ptr(),
                         sT.data_ptr(), B, S, H, hs, chunk, strides, stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError "
-                           f"{err}")
+        raise _build.KernelError(f"rwkv6_scan kernel launch failed: "
+                                 f"cudaError {err}")
     rwkv6_scan.launches += 1
     return y, sT
 

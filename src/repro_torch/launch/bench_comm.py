@@ -1,6 +1,6 @@
 """TF-gRPC-Bench CLI of the PyTorch port — the paper's Table 2, as
 flags, plus the rpc-fabric families (fully_connected / ring / incast /
-allreduce / train_step), one run per call.
+allreduce / train_step): a single run, a --sweep or a --workload.
 
   PYTHONPATH=src python -m repro_torch.launch.bench_comm \
       --benchmark ps_throughput --num-ps 2 --num-workers 3 \
@@ -43,9 +43,37 @@ throughput of all families and writes the baseline file CI diffs;
 --check-baseline PATH re-collects under the file's recorded config and
 exits 1 on drift beyond --baseline-tolerance.
 
---sweep and --workload (the cross-product sweep and the open-loop trace
-driver of ``repro.launch.bench_comm``) are not ported yet and exit with
-an error that names ROADMAP.md.
+--sweep takes a comma-separated list of axes (scheme, mode, wire_mode,
+payload, transport, benchmark, network, workers, stream_chunks, algo,
+train_mode) and runs the cross-product of their values in one
+invocation, one table (and one schema-3 row a cell under --json). Every
+cell is one run on ``--device``'s rows: on the card its serialized
+cells pack and unpack through the payload_pack kernels. A cell that
+cannot run (allreduce on the collective transport, say) is reported as
+a SKIPPED row with its error, as in the reference. A cell the card
+fails (a kernel that does not build or launch, out of memory, a CUDA
+error) stops the sweep with that error, and the CLI exits non-zero.
+
+  PYTHONPATH=src python -m repro_torch.launch.bench_comm \
+      --benchmark ring --transport collective --num-workers 4 \
+      --arch qwen3-8b --sweep mode,stream_chunks --warmup 0.2 --duration 0.5
+
+--workload switches the CLI from the closed-loop families to the
+open-loop trace driver (``repro_torch.workload``): synthesize a seeded
+arrival process (--workload poisson|bursty|diurnal with --rate and
+--duration-s) or replay a recorded trace (--workload trace --trace-in
+PATH), fire it against a serve cluster of synthetic (numpy) engines
+behind real per-endpoint ServeSchedulers on the cluster transport
+(--num-ps / --num-workers / --cluster-spec, --sched-policy,
+--dispatch-policy), and print the SLO table. --trace-out records the
+workload for exact replay; --fault-bursts N carves N correlated
+burst-loss windows into the trace. The workload path is host-only, as in
+the reference: it runs no model and places nothing on the device.
+
+  PYTHONPATH=src python -m repro_torch.launch.bench_comm --device cpu \
+      --workload poisson --rate 200 --duration-s 2 --trace-out t.json
+  PYTHONPATH=src python -m repro_torch.launch.bench_comm --device cpu \
+      --workload trace --trace-in t.json
 """
 import argparse
 import json
@@ -58,10 +86,33 @@ FABRIC_BENCHMARKS = ("fully_connected", "ring", "incast", "allreduce",
                      "train_step")
 #: fabric families that read --algo (the collective schedule)
 ALGO_BENCHMARKS = ("allreduce", "train_step")
+WORKLOAD_CHOICES = ("poisson", "bursty", "diurnal", "trace")
 BENCHMARK_CHOICES = ("p2p_latency", "p2p_bandwidth", "ps_throughput",
                      "fully_connected", "ring", "incast", "allreduce",
                      "train_step")
 TRANSPORT_CHOICES = ("collective", "loopback", "simulated", "cluster")
+
+#: values an axis takes when swept (benchmark sweeps over the fabric
+#: families: the three paper benchmarks ignore --transport so crossing
+#: them with transports would repeat identical runs). workers and
+#: stream_chunks are the scaling axes — one invocation yields a
+#: worker-count or chunk-count curve.
+SWEEP_AXES = {
+    "scheme": ("uniform", "random", "skew"),
+    "mode": ("non_serialized", "serialized"),
+    "wire_mode": ("serialized", "scatter_gather", "zero_copy"),
+    "payload": ("small", "medium", "large"),
+    "transport": TRANSPORT_CHOICES,
+    "benchmark": FABRIC_BENCHMARKS,
+    "network": None,     # filled from netmodel.NETWORKS lazily
+    "workers": (2, 4, 8, 16),
+    "stream_chunks": (1, 2, 4, 8),
+    "algo": ("ring", "tree", "rsag"),
+    "train_mode": ("ps", "allreduce"),
+}
+
+#: sweep axis -> BenchConfig field (identity unless listed)
+AXIS_FIELD = {"workers": "num_workers"}
 
 
 def _metric(st) -> str:
@@ -167,9 +218,121 @@ def _print_phases(st) -> None:
               f"e2e {rec['end_to_end_s'] / calls * 1e6:.1f}  {cells}")
 
 
+def _card_errors() -> tuple:
+    """What a cell raises when the card, not its configuration, fails
+    it: a kernel that does not build or launch, the card out of memory,
+    a CUDA error. These stop a sweep."""
+    from repro_torch.kernels._build import KernelError
+    return (KernelError, torch.OutOfMemoryError) + (
+        (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError")
+        else ())
+
+
+def run_sweep(args, axes: List[str], payload_spec) -> List[dict]:
+    """Run the cross-product of the swept axes' values; every cell is
+    one bench.run on ``args.device``'s rows. Cells that cannot run
+    (e.g. a collective cell needing more endpoints than the device
+    has rows) are reported in the table rather than aborting the
+    sweep; an error of the card (``_card_errors``) is raised."""
+    import itertools
+
+    from repro_torch.core import bench
+    from repro_torch.core.netmodel import NETWORKS
+
+    values = []
+    for ax in axes:
+        vals = SWEEP_AXES[ax]
+        if ax == "network":
+            vals = tuple(sorted(NETWORKS))
+        if ax == "benchmark" and "stream_chunks" in axes:
+            # crossing benchmark x stream_chunks only makes sense for
+            # benchmarks that read the chunk count — fully_connected
+            # would repeat identical rows dressed up as a curve
+            vals = tuple(b for b in vals if b in ("ring", "incast"))
+        if ax == "benchmark" and "algo" in axes:
+            # likewise, only the collective families read --algo
+            vals = tuple(b for b in vals if b in ALGO_BENCHMARKS)
+        if ax == "benchmark" and "train_mode" in axes:
+            vals = tuple(b for b in vals if b == "train_step")
+        if ax == "payload":
+            # the payload axis restricts the generator to ONE size
+            # category per cell — a per-category S/M/L curve
+            values.append([("categories", (v,)) for v in vals])
+            continue
+        values.append([(AXIS_FIELD.get(ax, ax), v) for v in vals])
+    rows = []
+    for combo in itertools.product(*values):
+        overrides = dict(combo)
+        cfg = _build_config(args, payload_spec, **overrides)
+        row = {"benchmark": cfg.benchmark, "scheme": cfg.scheme,
+               "mode": cfg.mode, "wire_mode": cfg.resolved_wire_mode,
+               "network": _effective_network(cfg)}
+        if "payload" in axes:
+            row["payload"] = cfg.categories[0]
+        if "workers" in axes:
+            row["workers"] = cfg.num_workers
+        if "stream_chunks" in axes:
+            row["stream_chunks"] = cfg.stream_chunks
+        if cfg.benchmark in ALGO_BENCHMARKS or "algo" in axes:
+            row["algo"] = cfg.algo
+        if cfg.benchmark == "train_step" or "train_mode" in axes:
+            row["train_mode"] = cfg.train_mode
+        if cfg.benchmark in FABRIC_BENCHMARKS:
+            row["transport"] = cfg.transport
+        try:
+            st = bench.run(cfg, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            if isinstance(e, _card_errors()):
+                raise
+            row.update(error=str(e).split(";")[0])
+            rows.append(row)
+            continue
+        m = _metric(st)
+        row.update(mean_us=st.mean_s * 1e6, p95_us=st.p95_s * 1e6,
+                   n_iters=st.n_iters, metric=m,
+                   value=st.derived.get(m, st.derived.get("rpcs_per_s")))
+        if st.rpc_metrics:
+            row["rpc_metrics"] = st.rpc_metrics
+        if st.rpc_phases:
+            row["rpc_phases"] = st.rpc_phases
+        rows.append(row)
+    return rows
+
+
+def _print_sweep(rows: List[dict]) -> None:
+    cols = ["benchmark", "scheme", "mode", "wire_mode", "transport",
+            "network"]
+    for extra in ("payload", "workers", "stream_chunks", "algo",
+                  "train_mode"):                           # swept axes
+        if any(extra in r for r in rows):
+            cols.append(extra)
+    n_id = len(cols)                             # identity columns
+    cols += ["mean_us", "metric", "value"]
+    widths = {c: max(len(c), *(len(_cell(r, c)) for r in rows))
+              for c in cols}
+    print("  ".join(c.ljust(widths[c]) for c in cols))
+    print("  ".join("-" * widths[c] for c in cols))
+    for r in rows:
+        if "error" in r:
+            line = "  ".join(_cell(r, c).ljust(widths[c])
+                             for c in cols[:n_id])
+            print(f"{line}  SKIPPED: {r['error']}")
+        else:
+            print("  ".join(_cell(r, c).ljust(widths[c]) for c in cols))
+
+
+def _cell(row: dict, col: str) -> str:
+    v = row.get(col)
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.4g}"
+    return str(v)
+
+
 def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
-    """Parse, validate and run one benchmark; returns the result rows
-    (None for the baseline actions)."""
+    """Parse, validate and run one benchmark, a sweep or a workload;
+    returns the result rows (None for the baseline actions)."""
     ap = argparse.ArgumentParser(
         description="TF-gRPC-Bench micro-benchmark suite (paper Table 2)")
     ap.add_argument("--benchmark", default="p2p_latency",
@@ -213,9 +376,59 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
                          "call cap enforced by server-side admission "
                          "control (rejected calls retry; rejected "
                          "counts land in rpc_metrics)")
-    ap.add_argument("--workload", default=None, metavar="KIND",
-                    help="open-loop workload mode: not ported yet "
-                         "(ROADMAP.md)")
+    ap.add_argument("--workload", default=None,
+                    choices=list(WORKLOAD_CHOICES),
+                    help="open-loop workload mode: synthesize a seeded "
+                         "arrival process (poisson/bursty/diurnal, "
+                         "needs --rate and --duration-s) or replay a "
+                         "recorded trace (trace, needs --trace-in) "
+                         "against a synthetic serve cluster, and "
+                         "report SLOs instead of closed-loop "
+                         "throughput (host only: no device work)")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="workload generators: offered load in req/s")
+    ap.add_argument("--duration-s", type=float, default=None,
+                    help="workload generators: trace horizon in "
+                         "modeled seconds")
+    ap.add_argument("--trace-in", default=None, metavar="PATH",
+                    help="--workload trace: recorded trace to replay "
+                         "(mutually exclusive with the generator "
+                         "flags)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="workload mode: record the trace (arrivals, "
+                         "shapes, fault windows) for exact replay")
+    ap.add_argument("--prompt-dist", default="lognormal",
+                    choices=["lognormal", "zipf", "small", "medium",
+                             "large"],
+                    help="workload generators: prompt-length sampler "
+                         "(heavy-tailed lognormal/zipf, or a fixed "
+                         "paper size category)")
+    ap.add_argument("--sched-policy", default="fifo",
+                    choices=["fifo", "sjf"],
+                    help="workload mode: per-endpoint serve scheduler "
+                         "admission policy")
+    ap.add_argument("--dispatch-policy", default="round_robin",
+                    choices=["round_robin", "least_loaded",
+                             "scheduler_least_loaded"],
+                    help="workload mode: sharded dispatch policy "
+                         "across ps endpoints")
+    ap.add_argument("--starvation-age-s", type=float, default=None,
+                    help="workload mode, --sched-policy sjf: waits "
+                         "past this age regain FIFO priority")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="workload mode: per-endpoint continuous-"
+                         "batching admission cap")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="workload mode: per-endpoint KV-cache block "
+                         "budget (None = unbounded; small values "
+                         "exercise preemption)")
+    ap.add_argument("--fault-bursts", type=int, default=0,
+                    help="workload generators: carve this many "
+                         "correlated burst-loss windows into the "
+                         "trace (replayed with it)")
+    ap.add_argument("--fault-burst-width-s", type=float, default=0.5,
+                    help="width of each --fault-bursts window "
+                         "(modeled seconds)")
     ap.add_argument("--mode", default="non_serialized",
                     choices=["non_serialized", "serialized"])
     ap.add_argument("--wire-mode", default=None,
@@ -244,8 +457,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
     ap.add_argument("--arch", default=None,
                     help="payload from this arch's parameter histogram")
     ap.add_argument("--sweep", default=None, metavar="AXES",
-                    help="cross-product sweep: not ported yet "
-                         "(ROADMAP.md)")
+                    help="comma-separated axes to cross-product in one "
+                         f"run: {','.join(SWEEP_AXES)}")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the result rows as a versioned "
                          "JSON envelope {schema: 3, rows: [...]} "
@@ -270,12 +483,6 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
                          "card is an error); cpu runs the plain path")
     args = ap.parse_args(argv)
 
-    for flag, val in (("--sweep", args.sweep),
-                      ("--workload", args.workload)):
-        if val is not None:
-            ap.error(f"{flag} is not ported to repro_torch yet (ROADMAP.md, "
-                     f"Queue 1); run repro.launch.bench_comm {flag} or a "
-                     f"single benchmark here")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA GPU is visible "
                  "(torch.cuda.is_available() is False); pass --device cpu "
@@ -306,15 +513,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         ap.error(f"--admission-limit must be >= 1, got "
                  f"{args.admission_limit}")
     if (args.deadline_s is not None or args.admission_limit is not None) \
-            and args.benchmark not in FABRIC_BENCHMARKS:
+            and args.benchmark not in FABRIC_BENCHMARKS \
+            and args.sweep is None and args.workload is None:
         ap.error("--deadline-s/--admission-limit need a fabric "
                  f"benchmark ({', '.join(FABRIC_BENCHMARKS)}); got "
                  f"--benchmark {args.benchmark}")
-    if args.algo is not None and args.benchmark not in ALGO_BENCHMARKS:
+    if args.algo is not None and args.benchmark not in ALGO_BENCHMARKS \
+            and args.sweep is None and args.workload is None:
         ap.error(f"--algo needs a collective benchmark "
                  f"({', '.join(ALGO_BENCHMARKS)}); got --benchmark "
                  f"{args.benchmark}")
-    if args.train_mode is not None and args.benchmark != "train_step":
+    if args.train_mode is not None and args.benchmark != "train_step" \
+            and args.sweep is None and args.workload is None:
         ap.error(f"--train-mode needs --benchmark train_step; got "
                  f"--benchmark {args.benchmark}")
     if args.baseline_tolerance <= 0:
@@ -324,6 +534,9 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
         ap.error("--baseline and --check-baseline are mutually "
                  "exclusive (write a file OR diff against one)")
     if args.trace is not None:
+        if args.sweep is not None:
+            ap.error("--trace needs a single run, not --sweep (one "
+                     "trace file per run)")
         if args.baseline is not None or args.check_baseline is not None:
             ap.error("--trace records a benchmark run's spans, but "
                      "--baseline/--check-baseline collect modeled "
@@ -334,15 +547,146 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
                      f"({', '.join(FABRIC_BENCHMARKS)}); got "
                      f"--benchmark {args.benchmark}")
 
+    # open-loop workload flags vs the closed-loop paper families:
+    # every combination is either meaningful or a loud error, never a
+    # silently ignored flag
+    if args.workload is None:
+        used = [name for name, val in (
+            ("--rate", args.rate),
+            ("--duration-s", args.duration_s),
+            ("--trace-in", args.trace_in),
+            ("--trace-out", args.trace_out),
+            ("--starvation-age-s", args.starvation_age_s),
+            ("--kv-blocks", args.kv_blocks),
+            ("--fault-bursts", args.fault_bursts or None),
+        ) if val is not None]
+        if args.sched_policy != "fifo":
+            used.append("--sched-policy")
+        if args.dispatch_policy != "round_robin":
+            used.append("--dispatch-policy")
+        if used:
+            ap.error(f"{', '.join(used)}: open-loop workload flag"
+                     f"{'s' if len(used) > 1 else ''} without "
+                     f"--workload — the closed-loop paper families "
+                     f"pace themselves on completions; pass "
+                     f"--workload {{{', '.join(WORKLOAD_CHOICES)}}} "
+                     f"for an open-loop run")
+    else:
+        for flag, val in (("--sweep", args.sweep),
+                          ("--trace", args.trace),
+                          ("--baseline", args.baseline),
+                          ("--check-baseline", args.check_baseline),
+                          ("--arch", args.arch),
+                          ("--algo", args.algo),
+                          ("--train-mode", args.train_mode)):
+            if val is not None:
+                ap.error(f"--workload is a standalone open-loop run; "
+                         f"it cannot combine with {flag}")
+        if args.fault_bursts < 0:
+            ap.error(f"--fault-bursts must be >= 0, got "
+                     f"{args.fault_bursts}")
+        if args.fault_burst_width_s <= 0:
+            ap.error(f"--fault-burst-width-s must be > 0, got "
+                     f"{args.fault_burst_width_s}")
+        if args.max_batch < 1:
+            ap.error(f"--max-batch must be >= 1, got {args.max_batch}")
+        if args.kv_blocks is not None and args.kv_blocks < 1:
+            ap.error(f"--kv-blocks must be >= 1, got {args.kv_blocks}")
+        if args.workload == "trace":
+            if args.trace_in is None:
+                ap.error("--workload trace replays a recorded trace; "
+                         "pass --trace-in PATH")
+            fixed = [n for n, v in (("--rate", args.rate),
+                                    ("--duration-s", args.duration_s))
+                     if v is not None]
+            if args.fault_bursts:
+                fixed.append("--fault-bursts")
+            if fixed:
+                ap.error(f"{', '.join(fixed)}: a replayed trace "
+                         f"already fixes its arrivals and fault "
+                         f"schedule; generator flags are mutually "
+                         f"exclusive with --trace-in")
+        else:
+            if args.trace_in is not None:
+                ap.error("--trace-in implies --workload trace; the "
+                         f"{args.workload} generator synthesizes its "
+                         "own arrivals")
+            if args.rate is None or args.duration_s is None:
+                ap.error(f"--workload {args.workload} is open-loop: "
+                         f"it needs --rate (req/s) and --duration-s")
+            if args.rate <= 0:
+                ap.error(f"--rate must be > 0, got {args.rate}")
+            if args.duration_s <= 0:
+                ap.error(f"--duration-s must be > 0, got "
+                         f"{args.duration_s}")
+
+    axes = None
+    if args.sweep is not None:
+        axes = [a.strip() for a in args.sweep.split(",") if a.strip()]
+        bad = [a for a in axes if a not in SWEEP_AXES]
+        if bad or not axes:
+            ap.error(f"--sweep: unknown axes {bad or '(empty)'}; choose "
+                     f"from {', '.join(SWEEP_AXES)}")
+        dups = sorted({a for a in axes if axes.count(a) > 1})
+        if dups:
+            ap.error(f"--sweep: duplicate ax"
+                     f"{'is' if len(dups) == 1 else 'es'} "
+                     f"{', '.join(repr(a) for a in dups)}; each axis "
+                     f"may appear once")
+        if "transport" in axes and "benchmark" not in axes \
+                and args.benchmark not in FABRIC_BENCHMARKS:
+            ap.error(f"--sweep transport needs a fabric benchmark "
+                     f"({', '.join(FABRIC_BENCHMARKS)}); "
+                     f"got --benchmark {args.benchmark}")
+        # the scaling axes only scale benchmarks that read them —
+        # sweeping them elsewhere would print identical rows dressed
+        # up as a curve
+        workers_ok = FABRIC_BENCHMARKS + ("ps_throughput",)
+        if "workers" in axes and "benchmark" not in axes \
+                and args.benchmark not in workers_ok:
+            ap.error(f"--sweep workers needs a benchmark that scales "
+                     f"with workers ({', '.join(workers_ok)}); "
+                     f"got --benchmark {args.benchmark}")
+        streaming_ok = ("ring", "incast")
+        if "stream_chunks" in axes \
+                and args.benchmark not in streaming_ok \
+                and "benchmark" not in axes:
+            ap.error(f"--sweep stream_chunks needs a streaming "
+                     f"benchmark ({', '.join(streaming_ok)}); "
+                     f"got --benchmark {args.benchmark}")
+        if "algo" in axes and args.benchmark not in ALGO_BENCHMARKS \
+                and "benchmark" not in axes:
+            ap.error(f"--sweep algo needs a collective benchmark "
+                     f"({', '.join(ALGO_BENCHMARKS)}); got "
+                     f"--benchmark {args.benchmark}")
+        if "train_mode" in axes and args.benchmark != "train_step" \
+                and "benchmark" not in axes:
+            ap.error(f"--sweep train_mode needs --benchmark "
+                     f"train_step; got --benchmark {args.benchmark}")
+        if "stream_chunks" in axes and ("algo" in axes
+                                        or "train_mode" in axes):
+            # no benchmark reads both the chunk count and the
+            # collective axes — the cross-product would be empty
+            ap.error("--sweep stream_chunks cannot cross algo/"
+                     "train_mode: no benchmark reads both")
+
     if args.cluster_spec is not None:
         # parse + consistency in one place, before any work or output
-        if args.transport != "cluster":
-            ap.error("--cluster-spec needs --transport cluster")
+        if args.transport != "cluster" \
+                and not (axes and "transport" in axes) \
+                and args.workload is None:
+            ap.error("--cluster-spec needs --transport cluster, a "
+                     "transport sweep axis, or --workload")
         from repro_torch.rpc.cluster import load_cluster_spec
         try:
             args.cluster_spec = load_cluster_spec(args.cluster_spec)
         except (OSError, ValueError, KeyError, TypeError) as e:
             ap.error(f"--cluster-spec: {e}")
+
+    if args.workload is not None:
+        rows = run_workload(args, ap)
+        _write_json(args, rows)
+        return rows
 
     from repro_torch.core import bench
 
@@ -387,6 +731,11 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[dict]]:
               f"buffers, {payload_spec.total_bytes/1e6:.2f} MB "
               f"({', '.join(payload_spec.categories)})")
 
+    if axes is not None:
+        rows = run_sweep(args, axes, payload_spec)
+        _print_sweep(rows)
+        _write_json(args, rows)
+        return rows
     cfg = _build_config(args, payload_spec)
     st = bench.run(cfg, device=args.device)
     _print_single(st, cfg, args)
@@ -423,6 +772,63 @@ def _write_json(args, rows: List[dict]) -> None:
         with open(args.json, "w") as f:
             f.write(text + "\n")
         print(f"wrote {len(rows)} row(s) to {args.json}")
+
+
+def run_workload(args, ap) -> List[dict]:
+    """Open-loop workload mode: build/replay the trace, serve it, and
+    print the SLO table. Returns the schema-3 workload row."""
+    from repro_torch.workload import (Trace, correlated_burst_windows,
+                                      format_slo_table, serve_workload,
+                                      synthesize_trace)
+    if args.workload == "trace":
+        try:
+            trace = Trace.load(args.trace_in)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            ap.error(f"--trace-in: {e}")
+    else:
+        trace = synthesize_trace(args.workload, args.rate,
+                                 args.duration_s, seed=args.seed,
+                                 prompt_kind=args.prompt_dist)
+        if args.fault_bursts:
+            correlated_burst_windows(
+                trace, n_windows=args.fault_bursts,
+                width_s=args.fault_burst_width_s)
+    if args.trace_out:
+        trace.save(args.trace_out)
+        print(f"wrote trace ({len(trace)} events, "
+              f"{len(trace.fault_windows)} fault windows) to "
+              f"{args.trace_out}")
+    try:
+        run = serve_workload(
+            trace, cluster=args.cluster_spec, n_ps=args.num_ps,
+            n_workers=args.num_workers,
+            dispatch_policy=args.dispatch_policy,
+            sched_policy=args.sched_policy,
+            starvation_age_s=args.starvation_age_s,
+            max_batch=args.max_batch, kv_blocks=args.kv_blocks,
+            deadline_s=args.deadline_s)
+    except ValueError as e:
+        ap.error(f"--workload: {e}")
+    kind = trace.meta.get("kind", "trace")
+    print(f"workload       : {kind} [{len(trace)} events over "
+          f"{trace.duration_s:.3f} s, seed {trace.seed}]")
+    print(f"serving        : {args.num_ps} ps x {args.num_workers} "
+          f"workers, sched {args.sched_policy}, dispatch "
+          f"{args.dispatch_policy}")
+    if trace.fault_windows:
+        print(f"fault windows  : {len(trace.fault_windows)} "
+              f"correlated burst-loss window"
+              f"{'s' if len(trace.fault_windows) > 1 else ''}")
+    print(format_slo_table(run.report))
+    return [{
+        "benchmark": "workload", "workload": kind,
+        "events": len(trace), "seed": trace.seed,
+        "sched_policy": args.sched_policy,
+        "dispatch_policy": args.dispatch_policy,
+        "fault_windows": len(trace.fault_windows),
+        "slo": run.report.to_dict(),
+        "rpc_metrics": run.metrics.snapshot(gauges=True),
+    }]
 
 
 if __name__ == "__main__":

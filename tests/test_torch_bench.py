@@ -19,11 +19,23 @@ import repro_torch.core.bench as bench
 from repro_torch.configs import get_config
 from repro_torch.configs.tfgrpc_bench import BenchConfig
 from repro_torch.core.payload import from_arch, generate_spec
+from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.payload_pack import ops as pp_ops
 from repro_torch.launch import bench_comm
 
 ROOT = Path(__file__).resolve().parents[1]
 BASELINE = ROOT / "benchmarks" / "BENCH_fabric.json"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one thread each, so that parallel test workers do
+    not oversubscribe the cores (the timing tests of other files share
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -153,15 +165,6 @@ def test_cli_without_a_card_exits_2(monkeypatch, capsys):
     assert "no CUDA GPU" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--sweep", "mode"],
-                                   ["--workload", "poisson"]])
-def test_cli_unported_modes_name_the_roadmap(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        bench_comm.main(flags + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("flags", [
     ["--mode", "serialized", "--wire-mode", "zero_copy"],
     ["--algo", "ring"],
@@ -171,7 +174,20 @@ def test_cli_unported_modes_name_the_roadmap(flags, capsys):
     ["--fetch-ratio", "0"],
     ["--categories", "tiny"],
     ["--cluster-spec", "{}"],
-    ["--baseline", "a.json", "--check-baseline", "b.json"]])
+    ["--baseline", "a.json", "--check-baseline", "b.json"],
+    ["--sweep", "transport", "--benchmark", "p2p_latency"],
+    ["--sweep", "workers", "--benchmark", "p2p_latency"],
+    ["--sweep", "workers,workers", "--benchmark", "ring"],
+    ["--sweep", "stream_chunks,algo", "--benchmark", "ring"],
+    ["--sweep", "nosuch"],
+    ["--sweep", "mode", "--trace", "x.json", "--benchmark", "incast"],
+    ["--rate", "5"],
+    ["--workload", "poisson", "--rate", "5"],
+    ["--workload", "trace"],
+    ["--workload", "trace", "--trace-in", "t.json", "--rate", "5"],
+    ["--workload", "poisson", "--rate", "5", "--duration-s", "1",
+     "--sweep", "mode"],
+    ["--workload", "poisson", "--rate", "0", "--duration-s", "1"]])
 def test_cli_rejects_inconsistent_flags(flags):
     with pytest.raises(SystemExit) as e:
         bench_comm.main(["--device", "cpu"] + flags)
@@ -206,3 +222,135 @@ def test_cli_simulated_incast_matches_reference(capsys):
                                  transport="simulated"))
     assert f"rpcs_per_s = {st.derived['rpcs_per_s']:.2f}" in text
     assert "net projected " in text and "phase breakdown" in text
+
+
+# ---------------------------------------------------------------------------
+# --sweep
+# ---------------------------------------------------------------------------
+
+def _ref_rows(argv, tmp_path, name="ref.json"):
+    """The reference CLI's --json rows for ``argv``, in this process (the
+    modeled transports need no JAX device)."""
+    from repro.launch import bench_comm as ref_cli
+    out = tmp_path / name
+    ref_cli.main(argv + ["--json", str(out)])
+    return json.loads(out.read_text())["rows"]
+
+
+SIM_SWEEPS = [
+    ["--sweep", "benchmark,algo", "--num-workers", "4"],
+    ["--sweep", "mode,wire_mode", "--benchmark", "fully_connected",
+     "--num-workers", "3"],
+    ["--sweep", "workers,stream_chunks", "--benchmark", "ring"],
+    ["--sweep", "benchmark,stream_chunks", "--num-workers", "4",
+     "--arch", "qwen3-8b"],
+]
+IDENTITY = ("benchmark", "scheme", "mode", "wire_mode", "transport",
+            "network", "payload", "workers", "stream_chunks", "algo",
+            "train_mode")
+
+
+@pytest.mark.parametrize("argv", SIM_SWEEPS, ids=lambda a: a[1])
+def test_sweep_on_the_simulated_transport_equals_reference(argv, tmp_path,
+                                                           capsys):
+    argv = argv + ["--transport", "simulated", "--network", "eth40g",
+                   "--warmup", "0.05", "--duration", "0.2"]
+    ref = _ref_rows(argv, tmp_path)
+    rows = bench_comm.main(argv + ["--device", "cpu"])
+    assert len(rows) == len(ref) >= 6
+    for got, want in zip(rows, ref):
+        # identity columns, metric, the error text of a cell that cannot
+        # run, and the modeled value and round time: all equal, not close
+        for key in IDENTITY + ("metric", "value", "mean_us", "error"):
+            assert got.get(key) == want.get(key), (key, got, want)
+        assert set(got) == set(want)
+    text = capsys.readouterr().out
+    assert "benchmark" in text and "value" in text
+
+
+def test_sweep_json_envelope_and_table(tmp_path, capsys):
+    out = tmp_path / "rows.json"
+    rows = bench_comm.main(["--device", "cpu", "--sweep", "scheme,mode",
+                            "--benchmark", "incast", "--transport",
+                            "simulated", "--num-workers", "4",
+                            "--json", str(out)])
+    table = capsys.readouterr().out
+    doc = json.loads(out.read_text())
+    assert doc["schema"] == 3 and doc["rows"] == rows and len(rows) == 6
+    assert {(r["scheme"], r["mode"]) for r in rows} == {
+        (s, m) for s in ("uniform", "random", "skew")
+        for m in ("non_serialized", "serialized")}
+    for s in ("uniform", "random", "skew"):
+        assert table.count(s) >= 2
+
+
+def test_sweep_unrunnable_cells_carry_the_reference_error(tmp_path, capsys):
+    argv = ["--sweep", "algo", "--benchmark", "allreduce", "--transport",
+            "collective", "--num-workers", "4", "--warmup", "0",
+            "--duration", "0"]
+    ref = _ref_rows(argv, tmp_path)
+    capsys.readouterr()
+    rows = bench_comm.main(argv + ["--device", "cpu"])
+    assert rows == ref and len(rows) == 3
+    assert all(r["error"].startswith("allreduce does not run on the "
+                                     "collective transport") for r in rows)
+    assert capsys.readouterr().out.count("SKIPPED: ") == 3
+
+
+def test_sweep_collective_zero_copy_cell_skipped(capsys):
+    rows = bench_comm.main(["--device", "cpu", "--sweep", "wire_mode",
+                            "--benchmark", "fully_connected", "--transport",
+                            "collective", "--num-workers", "2", "--warmup",
+                            "0", "--duration", "0.02"])
+    errors = {r["wire_mode"]: r.get("error") for r in rows}
+    assert errors["zero_copy"].startswith("wire_mode=zero_copy is not "
+                                          "supported")
+    assert errors["serialized"] is None and errors["scatter_gather"] is None
+    assert "SKIPPED" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("error", [
+    KernelError("payload_pack pack launch failed: cudaError 700"),
+    torch.OutOfMemoryError("CUDA out of memory"),
+], ids=["kernel", "out_of_memory"])
+def test_sweep_raises_what_the_card_fails(monkeypatch, error):
+    """A cell the card fails stops the sweep (the CLI exits non-zero);
+    only a cell's configuration error becomes a SKIPPED row."""
+    def run(cfg, device):
+        raise error
+    monkeypatch.setattr(bench, "run", run)
+    argv = ["--device", "cpu", "--sweep", "mode", "--benchmark",
+            "p2p_latency", "--warmup", "0", "--duration", "0"]
+    with pytest.raises(type(error)):
+        bench_comm.main(argv)
+
+    def config_error(cfg, device):
+        raise RuntimeError("ring needs --num-workers >= 2")
+    monkeypatch.setattr(bench, "run", config_error)
+    rows = bench_comm.main(argv)
+    assert [r["error"] for r in rows] == ["ring needs --num-workers >= 2"] * 2
+
+
+def test_mode_sweep_of_p2p_latency_on_cpu_rows_matches_reference(tmp_path):
+    """Measured rows: the identity columns and metrics equal the
+    reference's; the times cannot be compared. Serialized cells on CPU
+    rows launch no kernel."""
+    argv = ["--benchmark", "p2p_latency", "--sweep", "mode", "--warmup",
+            "0", "--duration", "0.05"]
+    out = tmp_path / "ref.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro.launch.bench_comm"] + argv
+        + ["--json", str(out)], capture_output=True, text=True,
+        timeout=300, env={"PYTHONPATH": str(ROOT / "src"),
+                          "JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    ref = json.loads(out.read_text())["rows"]
+    launches = (pp_ops.pack.launches, pp_ops.unpack.launches)
+    rows = bench_comm.main(["--device", "cpu"] + argv)
+    assert (pp_ops.pack.launches, pp_ops.unpack.launches) == launches
+    assert [r["mode"] for r in rows] == ["non_serialized", "serialized"]
+    for got, want in zip(rows, ref):
+        for key in IDENTITY + ("metric",):
+            assert got.get(key) == want.get(key), key
+        assert set(got) == set(want)
+        assert got["value"] > 0 and got["n_iters"] > 0

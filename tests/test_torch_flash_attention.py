@@ -105,6 +105,13 @@ PATH_TABLE = [
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 256, "simt"),
+    # other head dims run the next instance on zero-padded inputs:
+    # hubert-xlarge's 80 and kimi-k2's 112 as 128
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 112, "wgmma"),
+    (torch.float32, 80, "simt"), (torch.float32, 112, "simt"),
+    (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 7, "mma"), (torch.bfloat16, 200, "mma"),
+    (torch.float32, 200, "simt"),
 ]
 
 
@@ -122,3 +129,68 @@ def test_cpu_calls_count_no_path():
     before = dict(flash_attention.launches_by_path)
     flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
     assert flash_attention.launches_by_path == before
+
+
+# hubert-xlarge (dh 80, 16 heads, kv 16, non-causal) and kimi-k2 (dh 112,
+# GQA) head dims, which the card runs padded to 128: the first is ROADMAP
+# Queue 3's minimal input
+HEAD_DIM_CASES = [
+    (1, 256, 4, 2, 80, False, None, None),
+    (2, 96, 4, 4, 80, True, None, None),
+    (1, 128, 8, 1, 112, True, None, None),
+    (1, 160, 4, 2, 112, False, 48, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_CASES)
+def test_head_dims_80_and_112_match_jax_kernel_and_ref(case):
+    B, S, H, KV, dh, causal, window, cap = case
+    arrays = _qkv(B, S, H, KV, dh, seed=dh + S)
+    ref_k = jax_flash(*map(jnp.asarray, arrays), causal, window, cap)
+    ref = attention_ref(*map(jnp.asarray, arrays), causal=causal,
+                        window=window, softcap=cap, scale=1.0 / dh ** 0.5)
+    out = flash_attention(*map(torch.from_numpy, arrays), causal, window,
+                          cap)
+    for want in (ref_k, ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dh", [48, 96, 7, 200, 80, 112])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_dim_matches_unpadded_plain(dh, dtype):
+    """The rule the card applies to a head dim without an instance: zero
+    columns up to the next instance, the scale of the real dh, the padded
+    output columns sliced off. Held here with attention_plain standing in
+    for the launch, against the reference's kernel (interpret mode) and
+    attention_ref on the unpadded inputs, and against the unpadded plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops
+    arrays = _qkv(1, 72, 4, 2, dh, seed=dh)
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in arrays)
+    scale = 1.0 / dh ** 0.5
+    out = ops.padded(attention_plain, q, k, v, True, 40, 25.0, scale)
+    assert ops.padded_head_dim(dh) > dh
+    assert out.shape == q.shape and out.is_contiguous()
+    ref_k = jax_flash(*[jnp.asarray(a, dtype) for a in arrays], True, 40,
+                      25.0)
+    ref = attention_ref(*map(jnp.asarray, arrays), causal=True, window=40,
+                        softcap=25.0, scale=scale)
+    for want in (ref_k, ref):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=TOLS[dtype], rtol=TOLS[dtype])
+    torch.testing.assert_close(out, attention_plain(q, k, v, True, 40, 25.0),
+                               atol=TOLS[dtype], rtol=TOLS[dtype])
+
+
+def test_every_head_dim_up_to_256_has_an_instance():
+    from repro_torch.kernels.flash_attention import ops
+    for dh in range(1, 257):
+        inst = ops.padded_head_dim(dh)
+        assert inst in ops._HEAD_DIMS and inst >= dh
+        assert all(i < dh for i in ops._HEAD_DIMS if i < inst)
+    assert ops.padded_head_dim(80) == ops.padded_head_dim(112) == 128
+    with pytest.raises(ValueError, match="head dim 264"):
+        ops.padded_head_dim(264)

@@ -28,6 +28,15 @@ FA_CASES = [
     (1, 320, 6, 2, 64, True, 128, 30.0),
     (1, 77, 4, 2, 16, True, None, None),
     (1, 100, 2, 1, 256, False, 16, None),
+    # head dims without an instance, zero-padded to the next one:
+    # hubert-xlarge's dh 80 and kimi-k2's dh 112 (as 128), causal and
+    # not, GQA, then 48 (as 64) and 96 (as 128)
+    (1, 256, 4, 2, 80, False, None, None),
+    (2, 200, 16, 16, 80, True, None, None),
+    (1, 256, 8, 1, 112, True, None, None),
+    (1, 130, 8, 2, 112, False, 48, 30.0),
+    (1, 100, 4, 2, 48, True, None, None),
+    (1, 90, 4, 2, 96, False, None, None),
 ]
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -55,7 +64,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert flash_attention.launches_by_path[path] == on_path + 1
-    if dtype == "bfloat16" and dh in (64, 128):
+    if dtype == "bfloat16" and dh in (64, 80, 112, 128):
         assert path == "wgmma"
     ref = attention_plain(q, k, v, causal, window, cap)
     torch.testing.assert_close(out.float(), ref.float(),
@@ -100,7 +109,7 @@ def test_wgmma_path_matches_plain(cuda, case, fused):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    q = torch.zeros(1, 8, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)

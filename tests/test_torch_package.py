@@ -20,11 +20,13 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
-# repro modules the port keeps as copies (import prefix rewritten only)
+# repro modules the port keeps as copies (import prefix rewritten only:
+# ``repro_torch`` for ``repro``, in ``from repro_torch import rpc`` too)
 COPIED = sorted(
     [p.relative_to(REF).as_posix() for p in (REF / "configs").glob("*.py")]
     + ["core/payload.py", "core/netmodel.py", "core/resource.py",
        "serve/scheduler.py", "train/fabric_train.py"]
+    + [p.relative_to(REF).as_posix() for p in (REF / "workload").glob("*.py")]
     + [p.relative_to(REF).as_posix() for p in (REF / "rpc").glob("*.py")
        if p.name != "collective.py"])
 
@@ -87,6 +89,8 @@ def _port_modules():
 
 
 def test_imports_with_jax_and_repro_blocked():
+    assert {"repro_torch.workload", "repro_torch.workload.driver",
+            "repro_torch.launch.bench_comm"} <= set(_port_modules())
     code = f"""
 import importlib, sys
 class Block:
@@ -118,7 +122,7 @@ def test_sources_name_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copies_equal_the_originals(rel):
-    port = (PORT / rel).read_text().replace("repro_torch.", "repro.")
+    port = re.sub(r"\brepro_torch\b", "repro", (PORT / rel).read_text())
     for port_text, ref_text in DIFFERENCES.get(rel, ()):
         assert port_text in port, (rel, port_text)
         port = port.replace(port_text, ref_text, 1)
