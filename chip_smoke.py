@@ -22,7 +22,8 @@ Phases (any failure raises, and the script exits non-zero):
    dims 80 and 112, which run zero-padded to 128 (bf16 must take
    ``wgmma``), two more padded head dims, and at the hubert-xlarge (dh
    80) and kimi-k2 (dh 112) shapes the per-tile check with its
-   controls and kernel / plain / SDPA times;
+   controls and kernel / plain / SDPA times; then the prefill shapes of
+   Jamba-1.5-Large and Kimi-K2 checked and timed the same way;
 3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
    reference's kernel-test sizes, unaligned serialization sizes, 8
    endpoint rows of the default payload and of the Qwen3-8B payload,
@@ -60,6 +61,12 @@ Phases (any failure raises, and the script exits non-zero):
    logits within a bound that two wrong WKVs patched in (the state reset
    at every chunk boundary; cum in place of cum_{t-1}) must exceed, and
    a reduced model in fp32;
+8b. serve the MoE and Mamba models at full width, each cut in depth to
+   what one card holds (``MOE_SERVE``): Mixtral-8x7B (8 of 32 layers),
+   Jamba-1.5-Large (5 of 72: positions 0-4 of its period, 4 Mamba and 1
+   attention layer, MoE at 1 and 3) and Kimi-K2 (1 of 61), the same
+   three ways: greedy tokens must agree, K3 must launch once an
+   attention layer a prefill, all on wgmma, and K4 never;
 9. training (``[train]``): Qwen3-8B at full width cut to 4 layers
    (bf16 compute, fp32 masters, AdamW, remat, seq 4096, batch 2) takes 4
    steps through the port's ``Trainer``, with the flash kernel launched
@@ -70,7 +77,11 @@ Phases (any failure raises, and the script exits non-zero):
    hubert-xlarge at full width and depth (48 layers, dh 80, about 1 B
    parameters) the same way for 2 steps at seq 4096, batch 1, all 96
    flash launches a step on wgmma (dh padded to 128), the control held
-   by the ``wq`` bound; the reduced model in fp32,
+   by the ``wq`` bound; Mixtral-8x7B at full width cut to 1 layer (seq
+   4096, batch 2, AdamW) the same way for 4 steps, with the (token,
+   expert) assignments that flip between kernel and plain counted and
+   the router's aux loss printed beside the cross-entropy; the reduced
+   Qwen3-8B, Mixtral and Jamba (one period) in fp32,
    3 steps on the card against the CPU; the train CLI with checkpoints
    and a ``Trainer`` whose step 3 fails until it restarts from
    ``step_2`` and lands on the unfaulted losses; RWKV-6 1.6B at full
@@ -147,6 +158,12 @@ FA_PADDED_CASES = [(1, 100, 4, 2, 48, True, None, None),
 # 112 over 8 kv heads, causal), batch 1
 FA_HEAD_DIM_SHAPES = {"hubert-xlarge": (1, 4096, 16, 16, 80, False),
                       "kimi-k2-1t-a32b": (1, 4096, 64, 8, 112, True)}
+# K3's prefill shapes in the MoE and Mamba models' serving (batch 4,
+# prompt 512, causal) that Qwen3-8B's does not cover (Mixtral's is
+# Qwen3-8B's: 32 heads of 128 over 8, its window of 4096 binds nowhere
+# in 512): Jamba's 64 heads of 128 over 8, Kimi-K2's 64 of 112 over 8
+FA_PREFILL_SHAPES = {"jamba-1.5-large-398b": (BATCH, PROMPT_LEN, 64, 8, 128),
+                     "kimi-k2-1t-a32b": (BATCH, PROMPT_LEN, 64, 8, 112)}
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K3 at the Qwen3-8B training shape and at the head-dim shapes above,
 # against plain, per (batch, head, 128-row q tile): mean|kernel - plain|
@@ -216,6 +233,17 @@ FP32_FLOPS = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
 # once too often) and 1.41 (the state reset at every chunk). The limit
 # lies between; the script fails if a control does not exceed it.
 RWKV_E2E_REL_TOL = 8.5e-2
+# The MoE and Mamba models served at full width (bf16 weights from seed
+# 0), each cut in depth to what one 80 GB card holds beside its
+# activations: (arch, layers kept, attention layers among them = K3
+# launches a prefill). Mixtral: 8 of 32 layers, 11.9 B parameters.
+# Jamba: positions 0-4 of its 8-layer period (a whole period is 45.1 B
+# parameters, 90 GB), 24.0 B. Kimi-K2: 1 of 61 layers, 384 experts,
+# 19.4 B. The depth is cut where the serve CLI builds its config
+# (``phase_serve``); the CLI has no depth flag, as the reference's has
+# none.
+MOE_SERVE = (("mixtral-8x7b", 8, 8), ("jamba-1.5-large-398b", 5, 1),
+             ("kimi-k2-1t-a32b", 1, 1))
 # payload pack / unpack: the reference's kernel-test sizes (aligned, and
 # lists drawn as its hypothesis property draws them), the unaligned
 # sizes serialization hands the kernels, and the endpoint rows of the
@@ -270,6 +298,14 @@ TRAIN_WQ_LAYER = 1
 HUBERT_ARCH, HUBERT_STEPS = "hubert-xlarge", 2
 HUBERT_BOUNDS = (1e-4, 2.5e-4, 2e-2)
 HUBERT_CONTROL_BREAKS = (2,)
+# Mixtral-8x7B at full width cut to 1 layer, seq 4096, batch 2, 4 steps
+# (two layers' AdamW state would not fit beside the activations). Its
+# router is discontinuous: where kernel and plain differ by a bf16
+# rounding, a token whose top two experts nearly tie can route
+# differently, so the step-0 readings carry the flips beside the
+# rounding; the script counts them.
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_STEPS = "mixtral-8x7b", 1, 4
+MIXTRAL_BOUNDS = (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL)
 # the reduced model in fp32, card against CPU: both fp32 throughout, so
 # they differ in summation order only
 TRAIN_FP32_TOL = 1e-4
@@ -278,6 +314,10 @@ TRAIN_FP32_TOL = 1e-4
 # from run to run, so the two agree to rounding and not bit for bit
 TRAIN_RESTART_TOL = 1e-5
 TRAIN_SMALL = ["--seq-len", "128", "--global-batch", "4"]
+# the reduced models trained in fp32 on the card against the CPU: the
+# dense one, and the MoE and Mamba layers under autograd (reduced Jamba
+# is one whole period: 7 Mamba layers, 1 attention layer, 4 MoE FFNs)
+TRAIN_SMALL_ARCHS = (ARCH, MIXTRAL_ARCH, "jamba-1.5-large-398b")
 # device kernels by kind, for [profile] (first match wins): the port's own
 # kernels, cuBLAS / CUTLASS products, PyTorch's indexed gathers and
 # scatters (the collective transport's row permutations, embeddings),
@@ -514,12 +554,23 @@ def phase_kernel(name: str) -> dict:
             **times(arch, q, k, v, causal)}
         del q, k, v
         torch.cuda.empty_cache()
+    prefill_shapes = {}
+    for arch, (B, S, H, KV, dh) in FA_PREFILL_SHAPES.items():
+        e, (q, k, v) = compare((B, S, H, KV, dh, True, None, None),
+                               torch.bfloat16)
+        prefill_shapes[arch] = {
+            "shape": f"q{tuple(q.shape)} kv {KV} bf16 causal",
+            "path": kernel_path(q.dtype, dh), "max_abs_err": e,
+            **times(f"{arch} prefill", q, k, v)}
+        del q, k, v
+        torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda", "path": path,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces":
                 "src/repro/kernels/flash_attention/flash_attention.py:77",
             "max_abs_err": max(err, train_err), **serving,
             "training_shape": training, "head_dims": head_dims,
+            "prefill_shapes": prefill_shapes,
             "head_dims_80_112_max_abs_err": new_err}
 
 
@@ -1081,31 +1132,65 @@ def phase_chain(name: str) -> None:
     print(f"[chain] {log.getvalue().strip()}")
 
 
-def phase_serve(name: str, args: list, kernel, layers: int) -> dict:
+@contextlib.contextmanager
+def cut_depth(arch: str, layers):
+    """The serve CLI's config of ``arch`` at full width with its first
+    ``layers`` layers (all of them where None): the CLI builds its
+    config from ``get_config`` and has no depth flag."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    if layers is None:
+        yield get_config(arch).model.num_layers
+        return
+    full = get_config(arch)
+    cut = full.replace(model=dataclasses.replace(full.model,
+                                                 num_layers=layers))
+    saved = serve.get_config
+    serve.get_config = lambda a: cut if a == arch else saved(a)
+    try:
+        yield full.model.num_layers
+    finally:
+        serve.get_config = saved
+
+
+def phase_serve(name: str, args: list, kernel, layers: int,
+                depth=None) -> dict:
     """One main path: the serve CLI with ``args`` over streaming RPC,
     unary RPC and direct calls, with every kernel's count set to 0 just
-    before and read just after. Returns ``kernel``'s launches, which
-    must be ``layers`` per prefill ("launches"), the direct path's
+    before and read just after; the model cut to its first ``depth``
+    layers where given (``cut_depth``). Returns ``kernel``'s launches,
+    which must be ``layers`` per prefill ("launches"), the direct path's
     engine ("engine", its weights reused by [cluster]) and its tokens
     ("direct", one (BATCH, NEW_TOKENS) array a request)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.launch import serve
+    from repro_torch.optim.optimizer import tree_leaves
     arch = args[args.index("--arch") + 1]
     vocab = get_config(arch).model.vocab_size
     modes = (("rpc/stream", []), ("rpc/unary", ["--unary"]),
              ("direct", ["--no-rpc"]))
-    outputs, prefills = {}, 0
+    outputs, prefills, kept = {}, 0, None
     counted = (flash_attention, rwkv6_scan)
     for fn in counted:
         fn.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
     for label, extra in modes:
+        kept = None       # one model on the card at a time
+        _free()
         torch.cuda.reset_peak_memory_stats()
-        res = serve.main(args + extra)
+        with cut_depth(arch, depth) as full_depth:
+            res = serve.main(args + extra)
         eng = res["engine"]
+        if depth is not None and label == "rpc/stream":
+            n = sum(t.numel() for t in tree_leaves(eng.params))
+            print(f"[serve] {arch} at full width cut to {depth} of "
+                  f"{full_depth} layers: {n} parameters (counted from the "
+                  f"tensors), {eng.acfg.train.compute_dtype}")
         ops = eng.op_seconds
         n_pre = len(ops["prefill"])
         prefills += n_pre
@@ -1125,8 +1210,7 @@ def phase_serve(name: str, args: list, kernel, layers: int) -> dict:
         outputs[label] = res["outputs"]
         kept = eng
         del res, eng, ops
-        gc.collect()      # the engine and its schedulers refer to each other
-        torch.cuda.empty_cache()
+        _free()        # the engine and its schedulers refer to each other
     launches = {fn.__name__: fn.launches for fn in counted}
     for label, outs in outputs.items():
         if len(outs) != REQUESTS:
@@ -1469,18 +1553,42 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
-                     n_steps: int, path: str, bounds: tuple,
-                     breaks: tuple = (0, 1, 2)):
-    """``arch`` at full width (cut to ``layers`` layers where not None):
+def routing_flips(kern: list, plain: list, moe) -> tuple:
+    """The (token, expert) assignments that one run makes and the other
+    does not, over the MoE layers' forward calls (each a (T*k,) tensor
+    of expert ids in (token, slot) order), and the assignments in all."""
+    flips = total = 0
+    for a, b in zip(kern, plain):
+        rows = torch.arange(a.numel(), device=a.device) // moe.top_k
+        made = []
+        for ids in (a, b):
+            m = torch.zeros(a.numel() // moe.top_k, moe.num_experts,
+                            dtype=torch.bool, device=a.device)
+            m[rows, ids] = True
+            made.append(m)
+        flips += int((made[0] & ~made[1]).sum())
+        total += a.numel()
+    return flips, total
+
+
+def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
+                bounds: tuple, breaks: tuple = (0, 1, 2),
+                wq_layer: int = TRAIN_WQ_LAYER) -> int:
+    """``arch`` at full width (cut to ``layers`` layers where not None),
+    seq TRAIN_SEQ, through the train CLI's config (bf16 compute, fp32
+    masters, the config's optimizer, remat):
     the first step with the flash kernel on and off within ``bounds``
-    (loss, gradient norm, a ``wq`` gradient), and the control (the
-    kernel's output rows shifted by one position), which must break the
-    bounds indexed by ``breaks``; then ``n_steps`` steps of
+    (loss, gradient norm, layer ``wq_layer``'s ``wq`` gradient), and the
+    control (the kernel's output rows shifted by one position), which
+    must break the bounds indexed by ``breaks``; for an MoE model also
+    the (token, expert) assignments that differ between kernel and
+    plain, and the router's aux loss beside the cross-entropy; then
+    ``n_steps`` steps of
     the port's Trainer, the main path, with the launch counts set to 0
     just before and read just after: K3 must launch twice a layer a step
-    (forward and remat's recompute), all on ``path``. Returns (acfg,
-    shape, trainer, params, opt, K3's launches)."""
+    (forward and remat's recompute), all on wgmma; then one more step's
+    breakdown (``step_breakdown``). Returns K3's launches on the main
+    path."""
     import dataclasses
 
     from repro_torch.data.pipeline import device_batch, host_batch
@@ -1496,6 +1604,7 @@ def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
         acfg = acfg.replace(model=dataclasses.replace(acfg.model,
                                                       num_layers=layers))
     what = f"{acfg.model.name} {acfg.model.num_layers} layers"
+    seq, path = TRAIN_SEQ, "wgmma"
     shape = train_shape(seq, batch_size)
     n_params = acfg.model.num_params()
     trainer = Trainer(acfg, shape, TrainerConfig(total_steps=n_steps,
@@ -1503,19 +1612,46 @@ def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
     params, opt, _ = trainer.init_state(0)
     batch = device_batch(host_batch(acfg, shape, 0, trainer.dcfg), "cuda")
 
+    # an MoE model's routing: each MoE layer's expert ids, forward only
+    # (remat's recompute routes the same tokens again)
+    import repro_torch.models.moe as moe_lib
+    routed, dispatch = [], moe_lib._dispatch_indices
+    n_moe = sum(map(acfg.model.moe_at, range(acfg.model.num_layers)))
+
+    def recording(expert_idx, *args):
+        if len(routed) < n_moe:
+            routed.append(expert_idx.clone())
+        return dispatch(expert_idx, *args)
+
     def first_step(flash: bool):
         cfg = acfg.replace(train=dataclasses.replace(
             acfg.train, use_flash_kernel=flash))
+        routed.clear()
         metrics, grads = steps.loss_and_grads(steps.make_loss_fn(cfg),
                                               params, batch)
         out = (float(metrics["ce"] + metrics["aux"]),
                float(O.global_norm(grads)),
-               grads["layers"][TRAIN_WQ_LAYER]["mixer"]["wq"].float())
+               grads["layers"][wq_layer]["mixer"]["wq"].float(),
+               float(metrics["ce"]), float(metrics["aux"]), list(routed))
         del grads
         _free()
         return out
 
-    kern, plain = first_step(True), first_step(False)
+    moe_lib._dispatch_indices = recording
+    try:
+        kern, plain = first_step(True), first_step(False)
+    finally:
+        moe_lib._dispatch_indices = dispatch
+    if acfg.model.moe is not None:
+        flips, total = routing_flips(kern[5], plain[5], acfg.model.moe)
+        print(f"[train] {what} step 0 routing, kernel vs plain: {flips} of "
+              f"{total} (token, expert) assignments differ over "
+              f"{len(kern[5])} MoE layers; ce {kern[3]:.6f} / "
+              f"{plain[3]:.6f}, router aux loss {kern[4]:.6g} / "
+              f"{plain[4]:.6g} on {name}")
+        if not (kern[4] > 0 and plain[4] > 0):
+            raise AssertionError(f"{what}: router aux loss {kern[4]}, "
+                                 f"{plain[4]}")
 
     # the control: attention_forward_flash looks flash_attention up on
     # the package at every call, so patching it there reaches the model
@@ -1536,7 +1672,7 @@ def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
           f"batch {batch_size}, step 0 kernel vs plain: loss {kern[0]:.6f} "
           f"/ {plain[0]:.6f} (rel {sound[0]:.3g}, bound {bounds[0]}), grad "
           f"norm {kern[1]:.6g} / {plain[1]:.6g} (rel {sound[1]:.3g}, bound "
-          f"{bounds[1]}), layer {TRAIN_WQ_LAYER} wq grad "
+          f"{bounds[1]}), layer {wq_layer} wq grad "
           f"max|diff|/max|plain| {sound[2]:.3g} (bound {bounds[2]}) on "
           f"{name}")
     caught = all(control[i] > bounds[i] for i in breaks)
@@ -1595,7 +1731,10 @@ def train_full_width(name: str, arch: str, layers, seq: int, batch_size: int,
                              f"{step_launches}, not {want} on {path} "
                              f"(forward and remat's recompute of each "
                              f"layer)")
-    return acfg, shape, trainer, params, opt, launches
+    step_breakdown(name, acfg, shape, trainer, params, opt, n_steps)
+    del params, opt, trainer
+    _free()
+    return launches
 
 
 def step_breakdown(name: str, acfg, shape, trainer, params, opt,
@@ -1609,47 +1748,22 @@ def step_breakdown(name: str, acfg, shape, trainer, params, opt,
     batch = device_batch(host_batch(acfg, shape, step, trainer.dcfg), "cuda")
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     events[0].record()
-    _, grads = steps.loss_and_grads(steps.make_loss_fn(acfg), params, batch)
+    metrics, grads = steps.loss_and_grads(steps.make_loss_fn(acfg), params,
+                                          batch)
     events[1].record()
     with torch.no_grad():
         updated = O.apply_updates(acfg.train, params, grads, opt)
     events[2].record()
     torch.cuda.synchronize()
     print(f"[train] {what}, one step's halves on CUDA events: loss and "
-          f"gradients {events[0].elapsed_time(events[1]):.1f} ms, AdamW "
-          f"update {events[1].elapsed_time(events[2]):.1f} ms on {name}")
+          f"gradients {events[0].elapsed_time(events[1]):.1f} ms (ce "
+          f"{float(metrics['ce']):.6f}, aux {float(metrics['aux']):.6g}), "
+          f"{acfg.train.optimizer} update "
+          f"{events[1].elapsed_time(events[2]):.1f} ms on {name}")
     del grads, updated
     _free()
     profiled(name, f"{what} one train step",
              lambda: trainer.step_fn(params, opt, batch)[2]["loss"], top_n=6)
-
-
-def phase_train_full(name: str) -> int:
-    """Qwen3-8B at full width, TRAIN_LAYERS layers (``train_full_width``),
-    then one more step's halves on CUDA events and under the profiler.
-    Returns K3's launches on the main path."""
-    acfg, shape, trainer, params, opt, launches = train_full_width(
-        name, ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS,
-        "wgmma", (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
-    step_breakdown(name, acfg, shape, trainer, params, opt, TRAIN_STEPS)
-    del params, opt, trainer
-    _free()
-    return launches
-
-
-def phase_train_hubert(name: str) -> int:
-    """hubert-xlarge at full width and depth (48 layers of 16 heads of 80,
-    about 1 B parameters, AdamW), through the train CLI's config: K3 on
-    its wgmma path (dh padded to 128) in every layer's forward and
-    remat's recompute; then one more step's breakdown. Returns K3's
-    launches on the main path."""
-    acfg, shape, trainer, params, opt, launches = train_full_width(
-        name, HUBERT_ARCH, None, TRAIN_SEQ, 1, HUBERT_STEPS, "wgmma",
-        HUBERT_BOUNDS, HUBERT_CONTROL_BREAKS)
-    step_breakdown(name, acfg, shape, trainer, params, opt, HUBERT_STEPS)
-    del params, opt, trainer
-    _free()
-    return launches
 
 
 def phase_train_small(name: str) -> None:
@@ -1669,28 +1783,32 @@ def phase_train_small(name: str) -> None:
     # card against CPU, fp32, the same params
     shape = train_shape(128, 2)
     gen = torch.Generator().manual_seed(0)
-    losses = {}
-    for device in ("cpu", "cuda"):
-        acfg = train_cli.train_config(
-            ARCH, reduced=True, device=device)
-        params = init_params(acfg, device="cpu",
-                             generator=gen.manual_seed(0))
-        params = O.tree_map(lambda t: t.to(device), params)
-        tr = Trainer(acfg, shape, TrainerConfig(total_steps=3, log_every=0),
-                     device=device)
-        tr.train(params=params,
-                 opt=O.init_opt_state(acfg.train, params,
-                                      period=acfg.model.pattern_period),
-                 start_step=0)
-        losses[device] = torch.tensor([r.loss for r in tr.history],
-                                      dtype=torch.float64)
-    err = (losses["cuda"] - losses["cpu"]).abs().max().item()
-    print(f"[train] reduced {ARCH} fp32, 3 steps, card vs CPU losses "
-          f"{losses['cuda'].tolist()} / {losses['cpu'].tolist()}: "
-          f"max_abs_err {err:.3g} (bound {TRAIN_FP32_TOL}) on {name}")
-    if not torch.allclose(losses["cuda"], losses["cpu"], atol=TRAIN_FP32_TOL,
-                          rtol=TRAIN_FP32_TOL):
-        raise AssertionError(f"reduced training, card vs CPU: {err:.3g}")
+    for arch in TRAIN_SMALL_ARCHS:
+        losses = {}
+        for device in ("cpu", "cuda"):
+            acfg = train_cli.train_config(arch, reduced=True, device=device)
+            params = init_params(acfg, device="cpu",
+                                 generator=gen.manual_seed(0))
+            params = O.tree_map(lambda t: t.to(device), params)
+            tr = Trainer(acfg, shape, TrainerConfig(total_steps=3,
+                                                    log_every=0),
+                         device=device)
+            tr.train(params=params,
+                     opt=O.init_opt_state(acfg.train, params,
+                                          period=acfg.model.pattern_period),
+                     start_step=0)
+            losses[device] = torch.tensor([r.loss for r in tr.history],
+                                          dtype=torch.float64)
+        err = (losses["cuda"] - losses["cpu"]).abs().max().item()
+        print(f"[train] reduced {arch} fp32 "
+              f"({acfg.model.num_layers} layers, {acfg.train.optimizer}), "
+              f"3 steps, card vs CPU losses {losses['cuda'].tolist()} / "
+              f"{losses['cpu'].tolist()}: max_abs_err {err:.3g} (bound "
+              f"{TRAIN_FP32_TOL}) on {name}")
+        if not torch.allclose(losses["cuda"], losses["cpu"],
+                              atol=TRAIN_FP32_TOL, rtol=TRAIN_FP32_TOL):
+            raise AssertionError(f"reduced {arch} training, card vs CPU: "
+                                 f"{err:.3g}")
 
     # faults and checkpoints on the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -1793,8 +1911,20 @@ def main() -> int:
                                   24)["launches"]
     phase_e2e_rwkv(name)
     _free()
-    by_path["train"] = phase_train_full(name)
-    by_path["train_hubert"] = phase_train_hubert(name)
+    for arch, depth, attn_layers in MOE_SERVE:
+        by_path[f"serve_{arch.split('-')[0]}"] = phase_serve(
+            name, ["--arch", arch] + SERVE_ARGS[2:], flash_attention,
+            attn_layers, depth)["launches"]
+        _free()
+    by_path["train"] = phase_train(
+        name, ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS,
+        (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
+    by_path["train_hubert"] = phase_train(
+        name, HUBERT_ARCH, None, 1, HUBERT_STEPS, HUBERT_BOUNDS,
+        HUBERT_CONTROL_BREAKS)
+    by_path["train_mixtral"] = phase_train(
+        name, MIXTRAL_ARCH, MIXTRAL_LAYERS, TRAIN_BATCH, MIXTRAL_STEPS,
+        MIXTRAL_BOUNDS, wq_layer=0)
     kernel["launches_by_main_path"] = by_path
     kernel["launches"] = sum(by_path.values())
     phase_train_small(name)

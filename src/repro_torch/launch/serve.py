@@ -5,12 +5,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --reduced --device cpu
 
 The model runs on ``--device cuda`` (the default; no card is an error,
-never a silent CPU run) with the prefill attention of every layer in
-the hand-written flash kernel (dense models) or the prefill WKV scan of
-every layer in the hand-written RWKV-6 kernel (``rwkv6-1.6b``), or on
-``--device cpu`` with their plain PyTorch versions. Weights are random,
+never a silent CPU run) with the prefill attention of every attention
+layer in the hand-written flash kernel (dense, MoE and the Mamba
+hybrid) or the prefill WKV scan of every layer in the hand-written
+RWKV-6 kernel (``rwkv6-1.6b``), or on ``--device cpu`` with their plain
+PyTorch versions. MoE FFNs and Mamba mixers are PyTorch ops on either
+device, as the reference computes them outside any Pallas kernel. Weights are random,
 drawn on the device from seed 0 and cast to the compute dtype tensor by
 tensor.
 

@@ -21,15 +21,13 @@ Params = Any
 
 
 def make_loss_fn(acfg: ArchConfig):
-    """(params, batch) -> (ce + aux, {ce, aux}). Dense and RWKV models
-    have no auxiliary loss: aux is 0 (MoE, whose router loss it is, is
-    not ported)."""
+    """(params, batch) -> (ce + aux, {ce, aux}): aux is the MoE router's
+    load-balance loss (0 for a model without MoE)."""
     def loss(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden, _ = M.forward(acfg, params, tokens=batch.get("tokens"),
-                              embeds=batch.get("embeds"), mode="train")
+        hidden, _, aux = M.forward(acfg, params, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"), mode="train")
         ce = M.loss_fn(acfg, params, hidden, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce + aux, {"ce": ce.detach(), "aux": aux}
+        return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
     return loss
 
 
@@ -65,7 +63,7 @@ def make_prefill_step(acfg: ArchConfig, max_seq: Optional[int] = None):
     """(params, batch) -> (states, logits at the last position only)."""
     @torch.no_grad()
     def prefill(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden, states = M.forward(
+        hidden, states, _ = M.forward(
             acfg, params, tokens=batch.get("tokens"),
             embeds=batch.get("embeds"), mode="prefill", max_seq=max_seq)
         logits = M.logits_fn(acfg, params, hidden[:, -1:])
@@ -79,7 +77,7 @@ def make_decode_step(acfg: ArchConfig, batch: int):
     @torch.no_grad()
     def decode(params: Params, states, tokens, embeds=None):
         assert (tokens if tokens is not None else embeds).shape[0] == batch
-        hidden, new_states = M.forward(
+        hidden, new_states, _ = M.forward(
             acfg, params, tokens=tokens, embeds=embeds, states=states,
             mode="decode")
         logits = M.logits_fn(acfg, params, hidden)

@@ -32,6 +32,14 @@ def dense_init(d_in, d_out, dtype, *, device, generator, scale=None):
                             generator=generator)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype JAX would promote the pair to (``fp32 @
+    bf16`` is an fp32 product in JAX, where torch's ``@`` refuses mixed
+    dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

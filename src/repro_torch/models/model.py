@@ -1,4 +1,5 @@
-"""Unified model, single device: dense GQA transformers and RWKV-6.
+"""Unified model, single device: dense / GQA / MoE transformers, RWKV-6
+and the Mamba / attention hybrid.
 
 The reference groups layers into *periods* and scans over stacked
 period parameters; here the parameters are one dict per layer
@@ -9,15 +10,21 @@ reference's parameters into this layout.
 Modes:
   train   — full-sequence forward; no state; each layer under activation
             checkpointing when ``acfg.train.remat`` is set
-  prefill — full-sequence forward; returns per-layer states (KV / RWKV)
+  prefill — full-sequence forward; returns per-layer states (KV / RWKV /
+            Mamba)
   decode  — single token with per-layer states
 
 ``forward`` casts the fp32 tensors of ``params`` to the compute dtype on
 every call, as the reference does, so training differentiates through
 the cast into fp32 master weights. Serving passes parameters already in
 the compute dtype (``init_params(..., dtype=...)``), for which the cast
-is a no-op: it is paid once, at init. Mamba layers and MoE FFNs are not
-ported yet.
+is a no-op: it is paid once, at init.
+
+``forward`` returns the MoE router's load-balance loss summed over the
+layers beside the hidden states, as the reference does; training adds
+it to the cross-entropy. Nothing here reads ``cfg.n_periods``: a
+served model may be cut to a depth that is not a whole number of
+periods (the parameters are a list of layers).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
@@ -38,26 +46,10 @@ from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
 Params = Dict[str, Any]
 States = List[Params]
 
-_NOT_PORTED = {
-    "mamba": "Mamba layers are not ported yet (ROADMAP.md, Queue 1: "
-             "models/ssm.py)",
-    "moe": "MoE FFNs are not ported yet (ROADMAP.md, Queue 1: "
-           "models/moe.py)",
-}
-
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    for kind in cfg.layer_pattern:
-        if kind not in ("attn", "rwkv"):
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -78,15 +70,23 @@ def cast_floats(tree, dtype: torch.dtype):
 
 def _init_layer(cfg: ModelConfig, li: int, dtype, *, device,
                 generator) -> Params:
-    kind = cfg.layer_pattern[li % cfg.pattern_period]
+    pos = li % cfg.pattern_period
+    kind = cfg.layer_pattern[pos]
     kw = dict(device=device, generator=generator)
     p: Params = {"norm1": init_norm(cfg, cfg.d_model, dtype, device=device),
                  "norm2": init_norm(cfg, cfg.d_model, dtype, device=device)}
     if kind == "rwkv":   # the channel-mix lives inside the rwkv param set
         p["mixer"] = ssm_lib.init_rwkv6(cfg, cfg.ssm, dtype, **kw)
         return p
-    p["mixer"] = attn_lib.init_attention(cfg, cfg.attention, dtype, **kw)
-    p["ffn"] = init_ffn(cfg, cfg.d_model, cfg.d_ff, dtype, **kw)
+    if kind == "mamba":
+        p["mixer"] = ssm_lib.init_mamba(cfg, cfg.ssm, dtype, **kw)
+    else:
+        p["mixer"] = attn_lib.init_attention(cfg, cfg.attention, dtype,
+                                             **kw)
+    if cfg.moe_at(pos):
+        p["ffn"] = moe_lib.init_moe(cfg, cfg.moe, dtype, **kw)
+    else:
+        p["ffn"] = init_ffn(cfg, cfg.d_model, cfg.d_ff, dtype, **kw)
     return p
 
 
@@ -96,7 +96,6 @@ def init_params(acfg: ArchConfig, *, device, generator: torch.Generator,
     config's param dtype) is applied tensor by tensor as each is drawn,
     so initialising in bf16 holds at most one fp32 tensor at a time."""
     cfg = acfg.model
-    check_supported(cfg)
     dtype = dtype or dtype_of(acfg.train.param_dtype)
     kw = dict(device=device, generator=generator)
     params: Params = {
@@ -121,13 +120,17 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
                  positions: Optional[torch.Tensor],
                  max_seq: Optional[int], use_flash: bool,
                  use_rwkv_kernel: bool
-                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One layer. Returns (x, new_state)."""
-    kind = cfg.layer_pattern[li % cfg.pattern_period]
+                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """One layer. Returns (x, new_state, aux_loss)."""
+    pos = li % cfg.pattern_period
+    kind = cfg.layer_pattern[pos]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "rwkv":
         h, new_state = _rwkv_time_mix(cfg, p, h, state, mode,
                                       use_rwkv_kernel)
+    elif kind == "mamba":
+        h, new_state = _mamba_mix(cfg, p, h, state, mode)
     else:
         h, new_state = _attention(cfg, li, p, h, state, mode, positions,
                                   max_seq, use_flash)
@@ -137,10 +140,14 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
         h2, cm_new = ssm_lib.rwkv6_channel_mix(p["mixer"], h2, state)
         if new_state is not None:
             new_state["shift_cm"] = cm_new
+    elif cfg.moe_at(pos):
+        # decode is dropless (serving must not drop a live token's experts)
+        h2, aux = moe_lib.apply_moe(cfg, cfg.moe, p["ffn"], h2,
+                                    dropless=(mode == "decode"))
     else:
         h2 = apply_ffn(cfg, p["ffn"], h2)
     x = x + h2.to(x.dtype)
-    return x, new_state
+    return x, new_state, aux
 
 
 def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
@@ -175,6 +182,20 @@ def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
     else:
         h, s = ssm_lib.rwkv6_time_mix(cfg, cfg.ssm, p["mixer"], h,
                                       mixer_state, use_kernel=use_kernel)
+    return h, ({"mixer": s} if mode != "train" else None)
+
+
+def _mamba_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
+               state: Optional[Params], mode: str
+               ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Prefill / train: the chunked SSD; decode: the exact one-token
+    recurrence."""
+    mixer_state = state["mixer"] if state is not None else None
+    if mode == "decode":
+        h, s = ssm_lib.mamba_step(cfg, cfg.ssm, p["mixer"], h, mixer_state)
+    else:
+        h, s = ssm_lib.mamba_forward(cfg, cfg.ssm, p["mixer"], h,
+                                     mixer_state)
     return h, ({"mixer": s} if mode != "train" else None)
 
 
@@ -233,14 +254,15 @@ def forward(acfg: ArchConfig, params: Params, *,
             states: Optional[States] = None,
             mode: str = "train",
             max_seq: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Optional[States]]:
-    """Returns (hidden (B,S,d) after final norm, new_states).
+            ) -> Tuple[torch.Tensor, Optional[States], torch.Tensor]:
+    """Returns (hidden (B,S,d) after final norm, new_states, aux_loss):
+    aux is the MoE layers' load-balance loss summed over layers (0 for a
+    model without MoE).
 
     ``max_seq``: prefill only — KV-cache slot count to allocate (defaults
     to the prefill length itself, i.e. no room to decode further).
     """
     cfg = acfg.model
-    check_supported(cfg)
     compute_dtype = dtype_of(acfg.train.compute_dtype)
     if compute_dtype != torch.float32:
         params = cast_floats(params, compute_dtype)
@@ -257,15 +279,17 @@ def forward(acfg: ArchConfig, params: Params, *,
                                   use_reentrant=False,
                                   **_remat_policy(acfg.train.remat_policy))
     new_states: Optional[States] = [] if mode != "train" else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, p in enumerate(params["layers"]):
         st = states[li] if states is not None else None
-        x, ns = layer(cfg, li, p, x, st, mode, positions, max_seq,
-                      acfg.train.use_flash_kernel,
-                      acfg.train.use_rwkv_kernel)
+        x, ns, aux_l = layer(cfg, li, p, x, st, mode, positions, max_seq,
+                             acfg.train.use_flash_kernel,
+                             acfg.train.use_rwkv_kernel)
+        aux = aux + aux_l
         if new_states is not None:
             new_states.append(ns)
     x = apply_norm(cfg, params["final_norm"], x)
-    return x, new_states
+    return x, new_states, aux
 
 
 def logits_fn(acfg: ArchConfig, params: Params,
@@ -311,10 +335,9 @@ def loss_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
 
 def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
                 device) -> States:
-    """Fresh per-layer states: empty KV caches; zero RWKV states (fp32,
-    as the reference makes them)."""
+    """Fresh per-layer states: empty KV caches; zero RWKV and Mamba
+    states (fp32, as the reference makes them)."""
     cfg = acfg.model
-    check_supported(cfg)
     cache_dtype = dtype_of(acfg.train.compute_dtype)
 
     def one_layer(li: int) -> Params:
@@ -323,6 +346,9 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
             s = ssm_lib.init_rwkv_state(cfg, cfg.ssm, batch, device=device)
             return {"mixer": {"S": s["S"], "shift_tm": s["shift_tm"]},
                     "shift_cm": s["shift_cm"]}
+        if cfg.layer_pattern[pos] == "mamba":
+            return {"mixer": ssm_lib.init_mamba_state(cfg, cfg.ssm, batch,
+                                                      device=device)}
         return {"mixer": attn_lib.init_cache(
             cfg.attention, batch, max_seq, cfg.window_at(pos), cache_dtype,
             device=device)}

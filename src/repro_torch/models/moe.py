@@ -1,0 +1,148 @@
+"""Mixture-of-Experts FFN: top-k routing, sort-based capacity dispatch,
+on one device.
+
+Dispatch is the reference's sort formulation (no O(T*E*C) one-hot
+dispatch tensor): flatten the (token, expert) assignments, sort them by
+expert (stably, so that ties keep flat order), place each in its
+expert's slot of an (E, C, d) buffer from the exclusive cumsum of the
+per-expert counts, run three batched expert GEMMs, and combine each
+token's k outputs with its gate weights. Assignments beyond capacity
+C = ceil4(T*k*cf/E) (at least 4, at most T) go to an overflow row and
+are dropped; decode is dropless (C = T).
+
+The reference's ``shard_map`` path (tensor- or expert-parallel experts
+over a mesh) is one shard here: the mesh is not ported.
+
+The combine gathers each token's k outputs in flat (token, slot) order
+and sums them, where the reference scatter-adds them in sorted order:
+the same sum, in an order that does not depend on a device's atomics,
+so a prefill on the card gives the same bits every run.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import _mm, activation, dense_init, \
+    truncated_normal
+
+
+def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
+             generator: torch.Generator) -> dict:
+    """The reference draws each expert tensor as one ``(E*d, f)`` dense
+    init (scale 1/sqrt(E*d)) reshaped to ``(E, d, f)``; here expert by
+    expert at that scale, so that at full width no fp32 copy of a whole
+    tensor is held. The router stays fp32."""
+    d, f, E = cfg.d_model, moe.d_ff_expert, moe.num_experts
+    kw = dict(device=device, generator=generator)
+
+    def experts(d_in, d_out, fan_in):
+        w = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+        for e in range(E):
+            w[e] = truncated_normal((d_in, d_out), 1.0 / math.sqrt(fan_in),
+                                    dtype, **kw)
+        return w
+
+    p = {"router": dense_init(d, E, torch.float32, **kw),
+         "w_up": experts(d, f, E * d),
+         "w_down": experts(f, d, E * f)}
+    if cfg.ffn_activation in ("swiglu", "geglu"):
+        p["w_gate"] = experts(d, f, E * d)
+    return p
+
+
+def _capacity(moe: MoEConfig, n_tokens: int, dropless: bool) -> int:
+    if dropless:
+        return n_tokens  # max per-expert load is n_tokens (top-k distinct)
+    c = int(n_tokens * moe.top_k * moe.capacity_factor / moe.num_experts)
+    c = max(4, -(-c // 4) * 4)     # >=4, multiple of 4
+    return min(c, n_tokens)
+
+
+def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int,
+                      capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """expert_idx: (A,) flat assignments. Returns (sort order, destination
+    row in the (E*C) buffer for each sorted assignment, keep mask). An
+    expert's first assignment sits at the count of assignments to lower
+    experts (the exclusive cumsum of the counts), found by a search of
+    the sorted ids: no atomics, no wait for the host."""
+    order = torch.argsort(expert_idx, stable=True)
+    sorted_e = expert_idx[order]
+    start = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, device=expert_idx.device,
+                               dtype=sorted_e.dtype))
+    pos_in_e = torch.arange(expert_idx.shape[0],
+                            device=expert_idx.device) - start[sorted_e]
+    keep = pos_in_e < capacity
+    dest = torch.where(keep, sorted_e * capacity + pos_in_e,
+                       n_experts * capacity)             # overflow row
+    return order, dest, keep
+
+
+def _expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor
+                ) -> torch.Tensor:
+    """buf: (E, C, d) -> (E, C, d) through the per-expert FFN."""
+    glu = cfg.ffn_activation in ("swiglu", "geglu")
+    act = "silu" if cfg.ffn_activation == "swiglu" else (
+        "gelu" if cfg.ffn_activation == "geglu" else cfg.ffn_activation)
+    up = torch.bmm(buf, p["w_up"])
+    if glu:
+        inner = activation(act, torch.bmm(buf, p["w_gate"])) * up
+    else:
+        inner = activation(act, up)
+    return torch.bmm(inner, p["w_down"])
+
+
+def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
+               *, dropless: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE over tokens x: (T, d). Returns (out (T, d), aux_loss)."""
+    T, d = x.shape
+    E, k = moe.num_experts, moe.top_k
+    C = _capacity(moe, T, dropless)
+
+    # fp32 @ the router (bf16 under compute casting) is fp32, as in JAX
+    logits = _mm(x.float(), p["router"])                 # (T, E)
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(gates, k, dim=-1)          # (T, k)
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+
+    flat_e = top_i.reshape(-1)                           # (T*k,)
+    flat_t = torch.arange(T * k, device=x.device) // k
+    order, dest_sorted, keep_sorted = _dispatch_indices(flat_e, E, C)
+    # each assignment's buffer row, in flat (token, slot) order
+    dest = torch.empty_like(dest_sorted).index_copy_(0, order, dest_sorted)
+    keep = torch.empty_like(keep_sorted).index_copy_(0, order, keep_sorted)
+
+    # kept rows are distinct; the overflow row only ever receives zeros
+    rows = torch.where(keep[:, None], x[flat_t], 0)
+    buf = x.new_zeros((E * C + 1, d)).index_put((dest,), rows)
+    out_buf = _expert_ffn(cfg, p, buf[:E * C].reshape(E, C, d))
+    out_buf = torch.cat([out_buf.reshape(E * C, d),
+                         out_buf.new_zeros((1, d))])
+    w = (top_w.reshape(-1) * keep).to(out_buf.dtype)
+    y = (out_buf[dest] * w[:, None]).to(x.dtype).reshape(T, k, d)
+    y = torch.sum(y, dim=1)
+
+    # Switch-style load-balance aux loss, over every assignment (dropped
+    # ones too)
+    frac = torch.zeros((E,), dtype=torch.float32, device=x.device) \
+        .index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    frac = frac / (T * k)
+    importance = torch.mean(gates, dim=0)
+    aux = E * torch.sum(frac * importance) * moe.aux_loss_weight
+    return y, aux
+
+
+def apply_moe(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
+              *, dropless: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out (B, S, d), aux scalar)."""
+    B, S, d = x.shape
+    out, aux = _moe_local(cfg, moe, p, x.reshape(B * S, d),
+                          dropless=dropless)
+    return out.reshape(B, S, d), aux

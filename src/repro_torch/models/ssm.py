@@ -1,9 +1,7 @@
-"""Recurrent blocks: RWKV-6 ("Finch", data-dependent per-channel decay).
+"""Recurrent blocks: RWKV-6 ("Finch", data-dependent per-channel decay)
+and Mamba (the SSD formulation).
 
-The reference's ``models/ssm.py`` also holds Mamba (SSD); that half is
-not ported yet (ROADMAP.md, Queue 1).
-
-Prefill uses the chunked formulation: with ``use_kernel`` the WKV scan
+RWKV-6 prefill uses the chunked formulation: with ``use_kernel`` the WKV scan
 of every chunk runs in the hand-written kernel K4
 (``kernels/rwkv6_scan``), otherwise in ``rwkv6_chunked`` below. All
 decay exponents are differences of inclusive cumulative log decays and
@@ -18,6 +16,13 @@ lerps and projections in fp32.
 
 Shapes: x (B, S, d). State: {"S": (B, H, K, V) fp32, "shift_tm": (B, d),
 "shift_cm": (B, d)}.
+
+Mamba prefill runs the chunked SSD (chunk 64) in plain PyTorch, as the
+reference runs it in einsums outside any Pallas kernel; decode is the
+exact one-token recurrence. State: {"h": (B, H, 64, N) fp32, "conv":
+(B, W-1, di), "conv_bc": (B, W-1, 2N)}: the conv histories are fp32
+zeros from ``init_mamba_state`` and the compute dtype after a prefill or
+a step, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,15 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import _mm, dense_init, truncated_normal
 
 NEG_INF = -1e30
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in the dtype JAX would promote the pair to."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
@@ -233,3 +232,189 @@ def init_rwkv_state(cfg: ModelConfig, ssm: SSMConfig, batch: int, *,
                                     device=device),
             "shift_cm": torch.zeros((batch, d), dtype=torch.float32,
                                     device=device)}
+
+
+# =========================================================================
+# Mamba (SSD formulation)
+# =========================================================================
+
+P_HEAD = 64  # SSD head size
+
+
+def mamba_dims(cfg: ModelConfig, ssm: SSMConfig):
+    di = ssm.expand * cfg.d_model
+    H = di // P_HEAD
+    N = ssm.d_state
+    return di, H, N
+
+
+def truncated_conv_init(width: int, channels: int, dtype, *, device,
+                        generator: torch.Generator) -> torch.Tensor:
+    return truncated_normal((width, channels), 1.0 / width ** 0.5, dtype,
+                            device=device, generator=generator)
+
+
+def init_mamba(cfg: ModelConfig, ssm: SSMConfig, dtype, *, device,
+               generator: torch.Generator) -> dict:
+    """The reference keeps ``a_log``, ``d_skip`` and ``dt_bias`` in fp32
+    and casts them to the compute dtype on every call; here they are
+    cast to ``dtype`` once, as every tensor is (see ``init_rwkv6``)."""
+    d = cfg.d_model
+    di, H, N = mamba_dims(cfg, ssm)
+    kw = dict(device=device, generator=generator)
+
+    def vec(t):
+        return t.to(device=device, dtype=dtype)
+
+    return {
+        "z_proj": dense_init(d, di, dtype, **kw),
+        "x_proj": dense_init(d, di, dtype, **kw),
+        "bc_proj": dense_init(d, 2 * N, dtype, **kw),
+        "dt_proj": dense_init(d, H, dtype, **kw),
+        "conv_w": truncated_conv_init(ssm.d_conv, di, dtype, **kw),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "conv_w_bc": truncated_conv_init(ssm.d_conv, 2 * N, dtype, **kw),
+        "conv_b_bc": torch.zeros((2 * N,), dtype=dtype, device=device),
+        "a_log": vec(torch.log(torch.linspace(1.0, 16.0, H))),
+        "d_skip": vec(torch.ones((H,))),
+        "dt_bias": vec(torch.log(torch.expm1(torch.linspace(1e-3, 1e-1,
+                                                             H)))),
+        "norm": torch.ones((di,), dtype=dtype, device=device),
+        "out_proj": dense_init(di, d, dtype, **kw),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor, carry: Optional[torch.Tensor]
+                           ) -> torch.Tensor:
+    """x: (B,S,C); w: (W,C). Left-pad with carry (B,W-1,C) or zeros."""
+    W, S = w.shape[0], x.shape[1]
+    pad = (x.new_zeros((x.shape[0], W - 1, x.shape[2])) if carry is None
+           else carry.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)                      # (B, S+W-1, C)
+    out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(W))
+    return F.silu(out + b)
+
+
+def mamba_ssd_chunked(xh, B_, C_, log_a, h0, chunk: int):
+    """xh: (B,S,H,P) dt-scaled inputs; B_,C_: (B,S,N); log_a: (B,S,H) <=0;
+    h0: (B,H,P,N). Returns y (B,S,H,P), h_final. A loop over chunks (the
+    reference's scan); every decay exponent is a difference of inclusive
+    cumulative log decays, <= 0."""
+    S = xh.shape[1]
+    assert S % chunk == 0, (S, chunk)
+    idx = torch.arange(chunk, device=xh.device)
+    tri = idx[None, :] <= idx[:, None]                   # i <= t
+    h = h0
+    ys = []
+    for c0 in range(0, S, chunk):
+        xb, Bb, Cb, ab = (t[:, c0:c0 + chunk] for t in (xh, B_, C_, log_a))
+        cum = torch.cumsum(ab, dim=1)                     # (B,Lc,H)
+        dlog = cum[:, :, None, :] - cum[:, None, :, :]    # [t,i,h]
+        dlog = torch.where(tri[None, :, :, None], dlog,
+                           torch.full_like(dlog, NEG_INF))
+        scores = torch.einsum("btn,bin->bti", Cb, Bb)     # (B,Lc,Lc)
+        M = scores[:, :, :, None] * torch.exp(dlog)       # (B,Lc,Lc,H)
+        y_intra = torch.einsum("btih,bihp->bthp", M, xb)
+        y_inter = torch.einsum("btn,bhpn->bthp", Cb, h) * \
+            torch.exp(cum)[..., None]
+        decay_out = torch.exp(cum[:, -1:, :] - cum)       # (B,Lc,H)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + \
+            torch.einsum("bihp,bin->bhpn", xb * decay_out[..., None], Bb)
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h
+
+
+def _mamba_proj(p, x):
+    return (_mm(x, p["z_proj"]), _mm(x, p["x_proj"]), _mm(x, p["bc_proj"]),
+            _mm(x, p["dt_proj"]))
+
+
+def _mamba_post(p, y, z, x_heads, B, S, di):
+    y = y + p["d_skip"][None, None, :, None] * x_heads
+    y = y.reshape(B, S, di)
+    # gated RMSNorm
+    yz = y * F.silu(z.float())
+    var = torch.mean(torch.square(yz), dim=-1, keepdim=True)
+    y = yz * torch.rsqrt(var + 1e-6) * p["norm"].float()
+    # the reference casts down to the compute dtype BEFORE the
+    # out projection
+    return _mm(y.to(p["out_proj"].dtype), p["out_proj"])
+
+
+def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
+                  x: torch.Tensor, state: Optional[dict], chunk: int = 64
+                  ) -> Tuple[torch.Tensor, dict]:
+    B, S, d = x.shape
+    di, H, N = mamba_dims(cfg, ssm)
+    padn = (-S) % chunk
+    if padn:
+        x = F.pad(x, (0, 0, 0, padn))
+    Sp = S + padn
+    z, xs_pre, bc_pre, dt = _mamba_proj(p, x)
+    cx = state["conv"] if state is not None else None
+    cbc = state["conv_bc"] if state is not None else None
+    xs = _causal_depthwise_conv(xs_pre, p["conv_w"], p["conv_b"], cx)
+    bc = _causal_depthwise_conv(bc_pre, p["conv_w_bc"], p["conv_b_bc"],
+                                cbc)
+    B_, C_ = torch.split(bc, N, dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,Sp,H)
+    if padn:  # padded tail: zero dt kills both decay and state writes
+        dt = dt * (torch.arange(Sp, device=x.device) < S)[None, :, None]
+    log_a = -torch.exp(p["a_log"])[None, None, :] * dt           # <= 0
+    x_heads = xs.reshape(B, Sp, H, P_HEAD).float()
+    xh = x_heads * dt[..., None]
+    h0 = state["h"] if state is not None else torch.zeros(
+        (B, H, P_HEAD, N), dtype=torch.float32, device=x.device)
+    y, h = mamba_ssd_chunked(xh, B_.float(), C_.float(), log_a, h0, chunk)
+    if padn:
+        y, z, x_heads = y[:, :S], z[:, :S], x_heads[:, :S]
+        xs_pre, bc_pre = xs_pre[:, :S], bc_pre[:, :S]
+    out = _mamba_post(p, y, z, x_heads, B, S, di)
+    W = ssm.d_conv
+
+    def hist(carry, pre):
+        zpad = x.new_zeros((B, W - 1, pre.shape[-1]))
+        full = torch.cat(
+            [(carry.to(x.dtype) if carry is not None else zpad), pre], dim=1)
+        return full[:, -(W - 1):, :]
+
+    return out, {"h": h, "conv": hist(cx, xs_pre),
+                 "conv_bc": hist(cbc, bc_pre)}
+
+
+def mamba_step(cfg: ModelConfig, ssm: SSMConfig, p: dict, x: torch.Tensor,
+               state: dict) -> Tuple[torch.Tensor, dict]:
+    """Exact single-token recurrence. x: (B,1,d)."""
+    B = x.shape[0]
+    di, H, N = mamba_dims(cfg, ssm)
+    z, xs_pre, bc_pre, dt = _mamba_proj(p, x)
+    W = ssm.d_conv
+    conv_in = torch.cat([state["conv"].to(x.dtype), xs_pre],
+                        dim=1)                            # (B, W, di)
+    conv_in_bc = torch.cat([state["conv_bc"].to(x.dtype), bc_pre],
+                           dim=1)                         # (B, W, 2N)
+    xs = F.silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
+                + p["conv_b"])[:, None, :]
+    bc = F.silu(torch.einsum("bwc,wc->bc", conv_in_bc, p["conv_w_bc"])
+                + p["conv_b_bc"])[:, None, :]
+    B_, C_ = torch.split(bc, N, dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]      # (B,H)
+    a = torch.exp(-torch.exp(p["a_log"])[None, :] * dt)   # (B,H)
+    x_heads = xs.reshape(B, 1, H, P_HEAD).float()
+    xdt = x_heads[:, 0] * dt[..., None]                   # (B,H,P)
+    h = state["h"] * a[:, :, None, None] + \
+        xdt[..., None] * B_[:, 0].float()[:, None, None, :]
+    y = torch.einsum("bn,bhpn->bhp", C_[:, 0].float(), h)[:, None]
+    out = _mamba_post(p, y, z, x_heads, B, 1, di)
+    return out, {"h": h, "conv": conv_in[:, -(W - 1):, :],
+                 "conv_bc": conv_in_bc[:, -(W - 1):, :]}
+
+
+def init_mamba_state(cfg: ModelConfig, ssm: SSMConfig, batch: int, *,
+                     device) -> dict:
+    di, H, N = mamba_dims(cfg, ssm)
+    kw = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros((batch, H, P_HEAD, N), **kw),
+            "conv": torch.zeros((batch, ssm.d_conv - 1, di), **kw),
+            "conv_bc": torch.zeros((batch, ssm.d_conv - 1, 2 * N), **kw)}

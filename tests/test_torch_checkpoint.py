@@ -72,7 +72,15 @@ def _assert_equal(port_np, ref):
 
 
 CASES = [("qwen3-8b", "adamw"), ("qwen3-8b", "adafactor"),
-         ("qwen3-8b", "sgd"), ("rwkv6-1.6b", "adamw")]
+         ("qwen3-8b", "sgd"), ("rwkv6-1.6b", "adamw"),
+         ("mixtral-8x7b", "adamw"), ("jamba-1.5-large-398b", "adafactor")]
+#: a leaf of each arch's first layer, by name in the checkpoint; the MoE
+#: expert tensors are 4-D once stacked, Mamba's a_log / d_skip / dt_bias
+#: fp32 (H,) vectors and conv_w (W, C)
+FIRST_LEAVES = {"qwen3-8b": ("mixer$wq",), "rwkv6-1.6b": ("mixer$wr",),
+                "mixtral-8x7b": ("mixer$wq", "ffn$w_up", "ffn$router"),
+                "jamba-1.5-large-398b": ("mixer$a_log", "mixer$conv_w",
+                                         "mixer$dt_bias")}
 
 
 @pytest.mark.parametrize("arch,optimizer", CASES)
@@ -82,8 +90,8 @@ def test_leaf_names_equal_the_reference(arch, optimizer):
     names = [n for n, _ in ckpt._flatten_with_names(
         state_to_jax(tcfg, *_port_state(tcfg, jstate)))]
     assert names == [n for n, _ in jax_ckpt._flatten_with_names(jstate)]
-    assert "0$blocks$pos0$mixer$" + ("wq" if arch == "qwen3-8b" else "wr") \
-        in names
+    for leaf in FIRST_LEAVES[arch]:
+        assert "0$blocks$pos0$" + leaf in names
     assert "1$step" in names and any(n.startswith("1$residual$blocks$")
                                      for n in names)
 
@@ -125,6 +133,30 @@ def test_to_jax_params_inverts_from_jax_params():
     port = from_jax_params(ref)
     assert len(port["layers"]) == jcfg.model.num_layers
     _assert_equal(to_jax_params(port, period=2), ref)
+
+
+def test_moe_and_mamba_leaves_convert_both_ways():
+    """Jamba at two periods: the expert tensors are 4-D once stacked
+    (period, E, d, f) and 3-D a layer; Mamba's a_log / d_skip / dt_bias
+    are fp32 (H,) a layer and conv_w (W, C); the round trip is exact."""
+    jcfg = jax_reduced("jamba-1.5-large-398b", n_layers=16)
+    ref = jax.tree.map(np.asarray,
+                       jax_init_params(jax.random.PRNGKey(0), jcfg))
+    assert ref["blocks"]["pos1"]["ffn"]["w_up"].ndim == 4
+    port = from_jax_params(ref)
+    m = jcfg.model
+    layer = port["layers"][9]                 # pos 1 of the second period
+    assert tuple(layer["ffn"]["w_up"].shape) == (
+        m.moe.num_experts, m.d_model, m.moe.d_ff_expert)
+    np.testing.assert_array_equal(layer["ffn"]["w_down"].numpy(),
+                                  ref["blocks"]["pos1"]["ffn"]["w_down"][1])
+    mixer = port["layers"][8]["mixer"]
+    H = 2 * m.d_model // 64
+    for k in ("a_log", "d_skip", "dt_bias"):
+        assert tuple(mixer[k].shape) == (H,) and \
+            mixer[k].dtype == torch.float32
+    assert tuple(mixer["conv_w"].shape) == (m.ssm.d_conv, 2 * m.d_model)
+    _assert_equal(to_jax_params(port, period=8), ref)
 
 
 def test_tensor_leaves_restore_on_the_target_device_and_dtype(tmp_path):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (flash attention, payload pack / unpack, the
-RWKV-6 WKV scan) against their plain versions on the card, and the
-flash kernel under autograd in a train step (imports torch only, so it
-runs where JAX is not installed):
+RWKV-6 WKV scan) against their plain versions on the card, the flash
+kernel under autograd in a train step, and the MoE and Mamba models on
+the card against the CPU (imports torch only, so it runs where JAX is
+not installed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
@@ -439,3 +440,70 @@ def test_train_step_launches_flash_per_layer(cuda, remat):
         want = (2 if remat else 1) * layers if flash else 0
         assert flash_attention.launches - before == want
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+def _moe_acfg(arch, dtype, **moe):
+    """A reduced config with its MoE widened by ``moe`` and compute in
+    ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    acfg = get_reduced_config(arch)
+    model = acfg.model
+    if moe:
+        model = dataclasses.replace(model, moe=dataclasses.replace(
+            model.moe, **moe))
+    return acfg.replace(model=model, train=dataclasses.replace(
+        acfg.train, compute_dtype=dtype, use_flash_kernel=True))
+
+
+def test_moe_prefill_is_bit_identical_across_runs(cuda):
+    """A bf16 prefill of an MoE model with Kimi-K2's top-8 of many
+    experts at the capacity that drops tokens: the combine sums each
+    token's 8 expert outputs in a fixed order, so two runs give the same
+    bits (a scatter-add in atomic order would not)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    acfg = _moe_acfg("kimi-k2-1t-a32b", "bfloat16", num_experts=32,
+                     top_k=8, capacity_factor=1.25)
+    gen = torch.Generator(device=cuda)
+    params = init_params(acfg, device=cuda, dtype=torch.bfloat16,
+                         generator=gen.manual_seed(0))
+    tokens = torch.randint(0, acfg.model.vocab_size, (4, 96), device=cuda,
+                           generator=gen.manual_seed(1))
+    prefill = steps.make_prefill_step(acfg, max_seq=100)
+    runs = [prefill(params, {"tokens": tokens}) for _ in range(2)]
+    (s0, l0), (s1, l1) = runs
+    assert torch.equal(l0, l1)
+    for a, b in zip(s0, s1):
+        assert torch.equal(a["mixer"].k, b["mixer"].k)
+        assert torch.equal(a["mixer"].v, b["mixer"].v)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+def test_reduced_fp32_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced model in fp32, the same parameters on the card (K3 on
+    its SIMT path, the MoE dispatch, Mamba's chunked SSD) and on the CPU:
+    hidden states, the router's aux loss, and a decode step from the
+    prefill's states, within 1e-4."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_map
+    acfg = _moe_acfg(arch, "float32")
+    params = M.init_params(acfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, acfg.model.vocab_size, (2, 71), dtype=np.int32))
+    tokens, nxt = tokens[:, :70], tokens[:, 70:]
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        with torch.no_grad():
+            hidden, _, aux = M.forward(acfg, p, tokens=tokens.to(dev))
+        states, logits = steps.make_prefill_step(acfg, max_seq=72)(
+            p, {"tokens": tokens.to(dev)})
+        _, step_logits = steps.make_decode_step(acfg, 2)(p, states,
+                                                         nxt.to(dev))
+        out.append([t.cpu() for t in (hidden, aux, logits, step_logits)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

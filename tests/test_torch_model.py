@@ -1,7 +1,8 @@
 """The port's model against the JAX package on the same parameters:
-layers, attention (plain, q-blocked, windowed ring-buffer decode) and
-the reduced Qwen3-8B prefill + decode steps, with the flash path off
-and on (the JAX side runs its Pallas kernel in interpret mode).
+layers, attention (plain, q-blocked, windowed ring-buffer decode), the
+reduced Qwen3-8B prefill + decode steps, with the flash path off and on
+(the JAX side runs its Pallas kernel in interpret mode), and the reduced
+MoE and Mamba models (Mixtral, Jamba, Kimi-K2) with the router's loss.
 Everything in fp32, at atol/rtol 1e-4."""
 import dataclasses
 
@@ -213,14 +214,126 @@ def test_prefill_and_decode_match_jax(jax_params, use_flash):
     check_states()
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("mixtral-8x7b", "models/moe.py"),
-    ("jamba-1.5-large-398b", "models/ssm.py")])
-def test_unported_layer_kinds_name_their_roadmap_item(arch, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        M.init_params(get_reduced_config(arch), device="cpu",
+# ---------------------------------------------------------------------------
+# the reduced MoE and Mamba models: prefill logits and states, 4 decode
+# steps, the router's aux loss
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["mixtral-8x7b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b"]
+
+
+def _close_layer_states(tstates, jstates, period):
+    """The port's per-layer states against the reference's (stacked over
+    periods: layer li is entry li // period of pos{li % period})."""
+    for li, st in enumerate(tstates):
+        ref = jax.tree.map(lambda a, i=li // period: a[i],
+                           jstates[f"pos{li % period}"])
+        if isinstance(st["mixer"], attn.KVCache):
+            _close(st["mixer"].k, ref["mixer"].k)
+            _close(st["mixer"].v, ref["mixer"].v)
+            assert st["mixer"].index == int(ref["mixer"].index)
+        else:
+            assert set(st["mixer"]) == set(ref["mixer"])
+            for k in ref["mixer"]:
+                _close(st["mixer"][k], ref["mixer"][k])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_mamba_models_prefill_and_decode_match_jax(arch):
+    """Reduced Mixtral (MoE, window), Jamba (Mamba + attention, MoE
+    every other layer) and Kimi-K2 (MoE, dh 112 reduced to 16): a
+    prompt of 70 (not a multiple of Mamba's chunk of 64) with room to
+    decode, then 4 greedy decode steps (MoE dropless), logits and every
+    layer's states against the reference's."""
+    jcfg, tcfg = jax_reduced(arch), get_reduced_config(arch)
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    tp = from_jax_params(_np(jp))
+    period = tcfg.model.pattern_period
+    prompt, max_seq = 70, 70 + DECODE_STEPS + 2
+    tokens = _rng(10).integers(0, tcfg.model.vocab_size, (2, prompt),
+                               dtype=np.int32)
+    jstates, jlogits = jax_steps.make_prefill_step(
+        NO_MESH, jcfg, max_seq=max_seq)(jp, {"tokens": jnp.asarray(tokens)})
+    tstates, tlogits = steps.make_prefill_step(tcfg, max_seq=max_seq)(
+        tp, {"tokens": torch.from_numpy(tokens)})
+    _close(tlogits, jlogits)
+    assert len(tstates) == tcfg.model.num_layers
+    _close_layer_states(tstates, jstates, period)
+    jdecode = jax_steps.make_decode_step(NO_MESH, jcfg, 2)
+    tdecode = steps.make_decode_step(tcfg, 2)
+    for _ in range(DECODE_STEPS):
+        tok = np.array(jnp.argmax(jlogits[:, -1], axis=-1), np.int32)
+        jstates, jlogits = jdecode(jp, jstates, jnp.asarray(tok)[:, None])
+        tstates, tlogits = tdecode(tp, tstates,
+                                   torch.from_numpy(tok)[:, None])
+        _close(tlogits, jlogits)
+    _close_layer_states(tstates, jstates, period)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+def test_forward_returns_the_summed_router_loss(arch):
+    """``forward`` returns (hidden, states, aux), aux the MoE layers'
+    load-balance losses summed, as the reference's does; a model without
+    MoE returns 0."""
+    jcfg, tcfg = jax_reduced(arch), get_reduced_config(arch)
+    jp = jax_init_params(jax.random.PRNGKey(1), jcfg)
+    tokens = _rng(11).integers(0, 128, (2, 16), dtype=np.int32)
+    jh, _, jaux = jax_model.forward(NO_MESH, jcfg, jp,
+                                    tokens=jnp.asarray(tokens))
+    th, states, taux = M.forward(tcfg, from_jax_params(_np(jp)),
+                                 tokens=torch.from_numpy(tokens))
+    assert states is None
+    _close(th, jh)
+    _close(taux, jaux)
+    assert float(taux) > 0
+    qcfg = get_reduced_config(ARCH)
+    qp = M.init_params(qcfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    _, _, aux = M.forward(qcfg, qp, tokens=torch.from_numpy(tokens))
+    assert float(aux) == 0.0
+
+
+def test_jamba_init_states_match_jax():
+    """Fresh states of the hybrid: KV caches for the attention layer,
+    fp32 zero Mamba states elsewhere, each of the reference's shape."""
+    jcfg, tcfg = (jax_reduced("jamba-1.5-large-398b"),
+                  get_reduced_config("jamba-1.5-large-398b"))
+    jstates = jax_model.init_states(NO_MESH, jcfg, 2, 8)
+    tstates = M.init_states(tcfg, 2, 8, device="cpu")
+    assert len(tstates) == tcfg.model.num_layers
+    for li, st in enumerate(tstates):
+        ref = jstates[f"pos{li % tcfg.model.pattern_period}"]["mixer"]
+        if tcfg.model.layer_pattern[li] == "attn":
+            assert tuple(st["mixer"].k.shape) == ref.k.shape[1:]
+            continue
+        assert set(st["mixer"]) == set(ref)
+        for k, t in st["mixer"].items():
+            assert tuple(t.shape) == ref[k].shape[1:]
+            assert t.dtype == torch.float32 and ref[k].dtype == jnp.float32
+            assert not t.any()
+
+
+def test_jamba_cut_below_one_period_serves():
+    """A depth that is not a whole number of periods (Jamba's card path
+    keeps positions 0-4 of its 8): init, prefill and decode need no
+    ``n_periods``."""
+    import dataclasses as dc
+    acfg = get_reduced_config("jamba-1.5-large-398b")
+    acfg = acfg.replace(model=dc.replace(acfg.model, num_layers=5))
+    with pytest.raises(AssertionError):
+        acfg.model.n_periods
+    p = M.init_params(acfg, device="cpu",
                       generator=torch.Generator().manual_seed(0))
-    assert what in str(e.value)
+    assert [("ffn" in lp and "router" in lp["ffn"]) for lp in
+            p["layers"]] == [False, True, False, True, False]
+    assert "wq" in p["layers"][4]["mixer"]
+    tokens = torch.from_numpy(_rng(12).integers(0, 128, (2, 9),
+                                                dtype=np.int32))
+    states, logits = steps.make_prefill_step(acfg, max_seq=12)(
+        p, {"tokens": tokens})
+    states, logits = steps.make_decode_step(acfg, 2)(
+        p, states, logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+    assert logits.shape == (2, 1, 128) and torch.isfinite(logits).all()
 
 
 def test_cast_floats_once():

@@ -264,15 +264,23 @@ def test_unknown_compression_mode_raises():
                             cfg, grad_compression="bf16"), tp, period=1))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b"])
+#: layers of the reduced configs below where their default is not enough:
+#: Jamba at two periods, so that each (2, H) Mamba vector (a_log, d_skip,
+#: dt_bias) is factored across its two layers, as in the reference
+ADAFACTOR_LAYERS = {"jamba-1.5-large-398b": 16}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b", "mixtral-8x7b",
+                                  "jamba-1.5-large-398b"])
 def test_adafactor_on_layers_matches_the_stacked_reference(arch):
     """Adafactor factors and RMS-clips whole tensors, and the reference's
     are stacked over the layers of a period position (a norm scale of
     each layer is one row of an (L, d) matrix). The port's per-layer
     params go through the same stacked update: each of 3 steps' updates
     and the state agree with the reference's on its own layout (gemma2:
-    period 2)."""
-    jcfg = jax_reduced(arch)
+    period 2; Mixtral: (2, E, d, f) expert tensors factored over their
+    last two axes; Jamba: period 8 at two periods, Mamba and MoE)."""
+    jcfg = jax_reduced(arch, n_layers=ADAFACTOR_LAYERS.get(arch))
     kw = dict(CFG, optimizer="adafactor")
     jtc, ttc = JaxTrainConfig(**kw), TrainConfig(**kw)
     jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
@@ -290,3 +298,8 @@ def test_adafactor_on_layers_matches_the_stacked_reference(arch):
         _updates_close(to_jax_params(tp, period=period), tp_old, jp, jp_old,
                        f"step {step}")
         _state_close(topt["v"], jopt["v"])
+    if arch == "jamba-1.5-large-398b":
+        assert set(topt["v"]["blocks"]["pos0"]["mixer"]["a_log"]) == \
+            {"vr", "vc"}
+        assert topt["v"]["blocks"]["pos1"]["ffn"]["w_up"]["vr"].shape == \
+            (2, 4, 64)

@@ -205,3 +205,79 @@ def test_rwkv_cli_serves_on_the_cpu():
                         for line in r.stdout.splitlines()
                         if "sample=" in line])
     assert len(samples[0]) == 2 and samples[0] == samples[1]
+
+
+# ---------------------------------------------------------------------------
+# the reduced MoE and Mamba models: expert routing and Mamba states
+# carried by the engine
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["mixtral-8x7b",
+                                        "jamba-1.5-large-398b"])
+def moe_engines(request):
+    jcfg = jax_reduced(request.param)
+    params = jax_init_params(jax.random.PRNGKey(2), jcfg)
+    scfg = dict(max_seq=80, max_new_tokens=5)
+    jeng = JaxServeEngine(NO_MESH, jcfg, params, JaxServeConfig(**scfg))
+    teng = ServeEngine(get_reduced_config(request.param),
+                       from_jax_params(jax.tree.map(np.asarray, params)),
+                       ServeConfig(**scfg))
+    return jeng, teng
+
+
+def test_moe_greedy_tokens_identical_three_ways(moe_engines):
+    """Greedy tokens equal the JAX engine's, directly, streamed and
+    unary; prompts of 8 and 70 (Jamba's padded Mamba chunk)."""
+    jeng, teng = moe_engines
+    _, channel = teng.serve_loopback()
+    for seed, plen in ((0, 8), (1, 70)):
+        prompts = _prompts(2, plen, seed)
+        want = jeng.generate(prompts)
+        assert want.shape == (2, 5)
+        direct = teng.generate(prompts)
+        streamed = rpc_generate_stream(channel, prompts)
+        unary = serve_stub(channel).generate((prompts, 0)).result()
+        for got in (direct, streamed, unary):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_moe_preemption_replays_the_states(moe_engines):
+    """Preemption by the KV budget rebuilds a request by replaying it:
+    with MoE routing (dropless decode) and Mamba states it finishes with
+    the tokens of its solo run, and the rebuilt states equal the live
+    ones tensor for tensor."""
+    _, teng = moe_engines
+    p1, p2 = _prompts(1, 8, 4), _prompts(1, 8, 5)
+    solo = [teng.generate(p, 4) for p in (p1, p2)]
+    sched = ServeScheduler(teng, max_batch=4, kv_blocks=21, block_size=1)
+    reqs = [sched.submit(p, 4) for p in (p1, p2)]
+    while not all(r.finished for r in reqs):
+        sched.step()
+    assert sched.counters["preempted"] >= 1
+    for req, want in zip(reqs, solo):
+        np.testing.assert_array_equal(np.stack(req.tokens, axis=1), want)
+    sched = ServeScheduler(teng, max_batch=1)
+    req = sched.submit(_prompts(2, 9, 6), 4)
+    req.tokens.append(teng.scheduler_prefill(req))
+    for _ in range(2):
+        req.tokens.append(teng.scheduler_decode(req))
+    live = req.runtime[0]
+    teng.scheduler_rebuild(req)
+    for a, b in zip(live, req.runtime[0]):
+        for x, y in zip(jax.tree.leaves(a, is_leaf=torch.is_tensor),
+                        jax.tree.leaves(b, is_leaf=torch.is_tensor)):
+            assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "kimi-k2-1t-a32b"])
+def test_moe_cli_serves_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
+         "11", "--new-tokens", "3", "--requests", "2", "--unary"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert sum("sample=" in line for line in r.stdout.splitlines()) == 2

@@ -5,7 +5,11 @@ mix with the kernel path off and on (the JAX side runs its Pallas kernel
 in interpret mode), the one-token step, the channel mix, the group norm,
 and the whole model's prefill states and greedy decode. fp32 at
 atol/rtol 1e-4, as tests/test_torch_model.py; one bf16 case, which runs
-JAX's mixed-dtype promotion, within bf16 rounding."""
+JAX's mixed-dtype promotion, within bf16 rounding. Then Mamba (the
+reduced jamba-1.5-large-398b's mixer: d_model 64, 2 SSD heads of 64,
+state 16, conv 4): the causal conv with and without carry, the chunked
+SSD, ``mamba_forward`` at lengths on and off the chunk, 8 exact steps
+after a prefill, the fresh states, and the conv history's dtype."""
 import dataclasses
 
 import jax
@@ -333,3 +337,148 @@ def test_port_init_params_has_the_reference_tree(jax_params):
             {k: tuple(v.shape) for k, v in b["mixer"].items()}
     assert conv["layers"][1]["mixer"]["w0"].shape == (4, 16)
     assert conv["layers"][1]["mixer"]["u"].shape == (4, 16)
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    """(reference config, port config, the reference's init_mamba params
+    as numpy, the same as tensors); dt_bias and a_log spread so the
+    decays differ per head."""
+    jm, tm = jax_reduced(JAMBA).model, get_reduced_config(JAMBA).model
+    jp = _np(jax_ssm.init_mamba(jax.random.PRNGKey(3), jm, jm.ssm,
+                                jnp.float32))
+    jp["conv_b"] = (_rng(30).standard_normal(jp["conv_b"].shape) * 0.1) \
+        .astype(np.float32)
+    jp["d_skip"] = _rng(31).standard_normal(jp["d_skip"].shape) \
+        .astype(np.float32)
+    return jm, tm, jp, {k: torch.tensor(v) for k, v in jp.items()}
+
+
+def _mamba_state(tm, B, seed):
+    di, H, N = ssm.mamba_dims(tm, tm.ssm)
+    W = tm.ssm.d_conv
+    rng = _rng(seed)
+    f = np.float32
+    return {"h": (rng.standard_normal((B, H, ssm.P_HEAD, N)) * 0.3)
+            .astype(f),
+            "conv": rng.standard_normal((B, W - 1, di)).astype(f),
+            "conv_bc": rng.standard_normal((B, W - 1, 2 * N)).astype(f)}
+
+
+def _both(st):
+    if st is None:
+        return None, None
+    return ({k: jnp.asarray(v) for k, v in st.items()},
+            {k: torch.from_numpy(v) for k, v in st.items()})
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_causal_depthwise_conv_matches_jax(with_carry):
+    rng = _rng(32)
+    x = rng.standard_normal((2, 9, 24)).astype(np.float32)
+    w = rng.standard_normal((4, 24)).astype(np.float32)
+    b = rng.standard_normal(24).astype(np.float32)
+    carry = rng.standard_normal((2, 3, 24)).astype(np.float32) \
+        if with_carry else None
+    ref = jax_ssm._causal_depthwise_conv(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        None if carry is None else jnp.asarray(carry))
+    out = ssm._causal_depthwise_conv(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        None if carry is None else torch.from_numpy(carry))
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_mamba_ssd_chunked_matches_jax(chunk):
+    rng = _rng(33)
+    B, S, H, P, N = 2, 128, 3, 64, 16
+    xh = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    log_a = -rng.uniform(0.0, 0.5, (B, S, H)).astype(np.float32)
+    h0 = (rng.standard_normal((B, H, P, N)) * 0.3).astype(np.float32)
+    yr, hr = jax_ssm.mamba_ssd_chunked(*(jnp.asarray(t) for t in
+                                         (xh, Bm, Cm, log_a, h0)), chunk)
+    y, h = ssm.mamba_ssd_chunked(*(torch.from_numpy(t) for t in
+                                   (xh, Bm, Cm, log_a, h0)), chunk)
+    _close(y, yr)
+    _close(h, hr)
+
+
+@pytest.mark.parametrize("S", [64, 70])       # 70: a padded tail
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_forward_matches_jax(mamba, S, with_state):
+    jm, tm, jp, tp = mamba
+    x = _rng(34).standard_normal((2, S, tm.d_model)).astype(np.float32)
+    jst, tst = _both(_mamba_state(tm, 2, 35) if with_state else None)
+    jout, jnew = jax_ssm.mamba_forward(jm, jm.ssm, jp, jnp.asarray(x), jst)
+    tout, tnew = ssm.mamba_forward(tm, tm.ssm, tp, torch.from_numpy(x), tst)
+    _close(tout, jout)
+    assert set(tnew) == set(jnew) == {"h", "conv", "conv_bc"}
+    for k in jnew:
+        assert tuple(tnew[k].shape) == jnew[k].shape
+        _close(tnew[k], jnew[k])
+
+
+def test_mamba_steps_after_prefill_match_jax(mamba):
+    """A prefill of 70 tokens, then 8 exact one-token steps: every
+    step's output and the states it returns."""
+    jm, tm, jp, tp = mamba
+    rng = _rng(36)
+    x = rng.standard_normal((2, 70, tm.d_model)).astype(np.float32)
+    _, jst = jax_ssm.mamba_forward(jm, jm.ssm, jp, jnp.asarray(x), None)
+    _, tst = ssm.mamba_forward(tm, tm.ssm, tp, torch.from_numpy(x), None)
+    jstep = jax.jit(jax_ssm.mamba_step, static_argnums=(0, 1))
+    for _ in range(8):
+        xs = rng.standard_normal((2, 1, tm.d_model)).astype(np.float32)
+        jout, jst = jstep(jm, jm.ssm, jp, jnp.asarray(xs), jst)
+        tout, tst = ssm.mamba_step(tm, tm.ssm, tp, torch.from_numpy(xs), tst)
+        _close(tout, jout)
+        for k in jst:
+            _close(tst[k], jst[k])
+
+
+def test_mamba_conv_history_dtype_follows_the_reference(mamba):
+    """Fresh states hold fp32 conv histories; a bf16 step or prefill
+    leaves them in bf16, as the reference's do, and h stays fp32."""
+    jm, tm, jp, tp = mamba
+    fresh = ssm.init_mamba_state(tm, tm.ssm, 2, device="cpu")
+    jfresh = jax_ssm.init_mamba_state(jm, jm.ssm, 2)
+    for k in jfresh:
+        assert tuple(fresh[k].shape) == jfresh[k].shape
+        assert fresh[k].dtype == torch.float32 and not fresh[k].any()
+    p16 = M.cast_floats(tp, torch.bfloat16)
+    x = torch.from_numpy(_rng(37).standard_normal(
+        (2, 1, tm.d_model)).astype(np.float32)).to(torch.bfloat16)
+    _, st = ssm.mamba_step(tm, tm.ssm, p16, x, fresh)
+    _, jst = jax_ssm.mamba_step(
+        jm, jm.ssm, jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp),
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jfresh)
+    for k in jst:
+        assert str(st[k].dtype)[6:] == str(jst[k].dtype), k
+    _, st2 = ssm.mamba_forward(tm, tm.ssm, p16, x.repeat(1, 5, 1), st)
+    assert st2["conv"].dtype == torch.bfloat16
+    assert st2["h"].dtype == torch.float32
+
+
+def test_port_init_mamba_has_the_reference_tree(mamba):
+    jm, tm, jp, _ = mamba
+    tp = ssm.init_mamba(tm, tm.ssm, torch.float32, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert set(tp) == set(jp)
+    for k, v in jp.items():
+        assert tuple(tp[k].shape) == v.shape, k
+        assert tp[k].dtype == torch.float32
+    for k in ("a_log", "dt_bias", "norm", "conv_b"):
+        np.testing.assert_allclose(
+            tp[k].numpy(), _np(jax_ssm.init_mamba(
+                jax.random.PRNGKey(3), jm, jm.ssm, jnp.float32))[k],
+            rtol=1e-6, atol=1e-7)

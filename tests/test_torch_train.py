@@ -6,8 +6,10 @@ step over 3 steps (losses at 1e-4, each step's parameter update within
 2e-2 · lr of the reference's: see the test); remat on and off; the ``Trainer`` (history, retries,
 restart from a checkpoint, checkpoints cross-loaded both ways, the
 straggler watchdog, ``extra``, the fault boundary); the train CLI and
-the example. Reduced Qwen3-8B and reduced RWKV-6 (through its plain
-chunked scan, as the reference trains it)."""
+the example. Reduced Qwen3-8B, reduced RWKV-6 (through its plain
+chunked scan, as the reference trains it), and reduced Mixtral and Jamba
+(one period: 7 Mamba layers, 4 MoE FFNs, Adafactor), whose loss is the
+cross-entropy plus the router's load-balance loss."""
 import dataclasses
 import pathlib
 import re
@@ -41,7 +43,7 @@ from repro_torch.train import trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["qwen3-8b", "rwkv6-1.6b"]
+ARCHS = ["qwen3-8b", "rwkv6-1.6b", "mixtral-8x7b", "jamba-1.5-large-398b"]
 SEQ, BATCH = 16, 2
 
 
@@ -167,8 +169,11 @@ def test_loss_and_grads_match_reference(model):
     metrics, grads = steps.loss_and_grads(
         steps.make_loss_fn(tcfg), tp, pipeline.device_batch(batch, "cpu"))
     np.testing.assert_allclose(float(metrics["ce"]), float(jm["ce"]), **TOL)
-    assert float(metrics["aux"]) == float(jm["aux"]) == 0.0
-    _close_trees(to_jax_params(grads, period=1), jgrads, **TOL)
+    np.testing.assert_allclose(float(metrics["aux"]), float(jm["aux"]),
+                               **TOL)
+    assert (float(metrics["aux"]) > 0) == (tcfg.model.moe is not None)
+    _close_trees(to_jax_params(grads, period=tcfg.model.pattern_period),
+                 jgrads, **TOL)
 
 
 @pytest.mark.parametrize("policy", [None, "nothing_saveable",
@@ -190,13 +195,14 @@ def test_remat_leaves_gradients_unchanged(model, policy):
 def test_train_step_matches_reference(model):
     arch, jp, tp = model
     jcfg, tcfg = _configs(arch)
+    period = tcfg.model.pattern_period
     jopt = JO.init_opt_state(jcfg.train, jp)
-    topt = O.init_opt_state(tcfg.train, tp, period=1)
+    topt = O.init_opt_state(tcfg.train, tp, period=period)
     jstep = jax_steps.make_train_step(NO_MESH, jcfg, donate=False)
     tstep = steps.make_train_step(tcfg)
     for s in range(3):
         batch = jax_pipeline.host_batch(jcfg, _shape(), s)
-        jp_old, tp_old = jp, to_jax_params(tp, period=1)
+        jp_old, tp_old = jp, to_jax_params(tp, period=period)
         jp, jopt, jm = jstep(jp, jopt, jax.tree.map(jnp.asarray, batch))
         before = [t.clone() for t in O.tree_leaves(tp)]
         new_tp, topt, tm = tstep(tp, topt, pipeline.device_batch(batch,
@@ -205,14 +211,14 @@ def test_train_step_matches_reference(model):
         assert all(torch.equal(a, b)
                    for a, b in zip(before, O.tree_leaves(tp)))
         tp = new_tp
-        for k in ("loss", "ce", "grad_norm", "lr"):
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), **TOL)
         # AdamW's update is m / sqrt(v): lr * sign(g) on the first step,
         # so where a gradient is near zero its last-bit differences reach
         # the update (measured: up to 1e-2 * lr, in 5e-5 of the
         # elements). A missing update (lr), or weight decay dropped or
         # flipped (0.1 * lr on the norm scales, which are 1), fails.
-        _updates_close(to_jax_params(tp, period=1), tp_old, jp, jp_old,
+        _updates_close(to_jax_params(tp, period=period), tp_old, jp, jp_old,
                        atol=2e-2 * float(jm["lr"]), msg=f"step {s}")
     assert int(topt["step"]) == 3
 
@@ -466,6 +472,21 @@ def test_train_cli_ps_mode_and_rwkv(capsys):
                          "--global-batch", "2", "--ps-mode"])
     assert tr.acfg.parallel.fsdp and tr.acfg.parallel.ps_mode
     assert "done: 2 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "kimi-k2-1t-a32b"])
+def test_train_cli_trains_moe_and_mamba_on_cpu(capsys, tmp_path, arch):
+    """The MoE and Mamba models through the train CLI, with checkpoints
+    (Jamba and Kimi-K2 on Adafactor): finite losses, the router loss in
+    each step's loss."""
+    tr = train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "2", "--seq-len", "16",
+                         "--global-batch", "2", "--ckpt-dir", str(tmp_path),
+                         "--ckpt-every", "2"])
+    assert "done: 2 steps" in capsys.readouterr().out
+    assert ckpt.latest_step(str(tmp_path)) == 2
+    assert all(np.isfinite(r.loss) for r in tr.history)
 
 
 def test_train_config_keeps_the_wkv_kernel_off():
