@@ -87,6 +87,13 @@ Phases (any failure raises, and the script exits non-zero):
    ``step_2`` and lands on the unfaulted losses; RWKV-6 1.6B at full
    width through the train CLI (no WKV kernel launch: it has no
    backward); the ``examples/torch_train_ps_mode.py --tiny`` run;
+9b. training over a device mesh (``[mesh]``): the same Qwen3-8B with
+   ``--ps-mode`` (fsdp on) through a 1 x 1 (data, model) mesh on NCCL at
+   world size 1 for 3 steps, 8 wgmma K3 launches a step through the
+   per-shard entry; its step 0 against the no-mesh kernel step within
+   the [train] bounds (bit-identical expected, and said), ms a step
+   beside [train]'s; then Mixtral-8x7B cut to 1 layer with
+   ``expert_sharding="ep"`` for one step (the per-shard MoE body);
 10. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
    p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
    default payload and with ``--arch qwen3-8b``, and fully_connected on
@@ -111,6 +118,7 @@ import contextlib
 import gc
 import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -318,6 +326,15 @@ TRAIN_SMALL = ["--seq-len", "128", "--global-batch", "4"]
 # dense one, and the MoE and Mamba layers under autograd (reduced Jamba
 # is one whole period: 7 Mamba layers, 1 attention layer, 4 MoE FFNs)
 TRAIN_SMALL_ARCHS = (ARCH, MIXTRAL_ARCH, "jamba-1.5-large-398b")
+# Training over a device mesh (``[mesh]``): the [train] phase's Qwen3-8B
+# (4 layers, seq 4096, batch 2, AdamW, remat) with --ps-mode (fsdp on)
+# through a 1 x 1 (data, model) mesh on NCCL at world size 1, MESH_STEPS
+# steps; its step 0 against the no-mesh kernel step within the [train]
+# bounds (world-size-1 collectives copy, so equal bits are expected and
+# the line says whether they came); then Mixtral-8x7B cut to 1 layer
+# with expert_sharding "ep" for one step, the per-shard MoE body and
+# K3's per-shard entry on the card
+MESH_STEPS, MESH_MIXTRAL_STEPS = 3, 1
 # device kernels by kind, for [profile] (first match wins): the port's own
 # kernels, cuBLAS / CUTLASS products, PyTorch's indexed gathers and
 # scatters (the collective transport's row permutations, embeddings),
@@ -1587,8 +1604,8 @@ def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
     the port's Trainer, the main path, with the launch counts set to 0
     just before and read just after: K3 must launch twice a layer a step
     (forward and remat's recompute), all on wgmma; then one more step's
-    breakdown (``step_breakdown``). Returns K3's launches on the main
-    path."""
+    breakdown (``step_breakdown``). Returns (K3's launches on the main
+    path, the mean ms of steps 1 on)."""
     import dataclasses
 
     from repro_torch.data.pipeline import device_batch, host_batch
@@ -1734,7 +1751,125 @@ def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
     step_breakdown(name, acfg, shape, trainer, params, opt, n_steps)
     del params, opt, trainer
     _free()
-    return launches
+    return launches, 1e3 * sum(steady) / len(steady)
+
+
+def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
+               train_ms: float, **parallel) -> int:
+    """``arch`` at full width cut to ``layers`` layers, trained with
+    ``--ps-mode`` (and the ``parallel`` knobs) through a 1 x 1 NCCL mesh:
+    step 0's loss, gradient norm and layer ``TRAIN_WQ_LAYER``'s ``wq``
+    gradient (layer 0's when there is one layer) against the no-mesh
+    kernel step on the same params and batch, within the [train]
+    bounds, then ``n_steps`` Trainer steps with K3 counted per step (2 a
+    layer, all wgmma), ms a step beside [train]'s ``train_ms`` and the
+    peak. Returns K3's launches on the main path."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.parallel.sharding import full, make_ctx
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    # DTensor warns at every redistribute that sums over two mesh dims
+    # (sequential all-reduces); on a 1 x 1 mesh they are copies
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    mesh_lib.init_single("cuda")
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cuda")
+        acfg = train_config(arch, reduced=False, device="cuda", ps_mode=True)
+        acfg = acfg.replace(
+            model=dataclasses.replace(acfg.model, num_layers=layers),
+            parallel=dataclasses.replace(acfg.parallel, **parallel))
+        ctx = make_ctx(acfg, mesh)
+        what = (f"{acfg.model.name} {layers} layers over a 1x1 mesh "
+                f"(fsdp, {ctx.expert_sharding if acfg.model.moe else 'dense'})")
+        shape = train_shape(TRAIN_SEQ, TRAIN_BATCH)
+        wq_layer = min(TRAIN_WQ_LAYER, layers - 1)
+        trainer = Trainer(acfg, shape, TrainerConfig(total_steps=n_steps,
+                                                     log_every=0),
+                          device="cuda", ctx=ctx)
+        host = host_batch(acfg, shape, 0, trainer.dcfg)
+
+        def first_step(c, params):
+            metrics, grads = steps.loss_and_grads(
+                steps.make_loss_fn(acfg, c), params,
+                device_batch(host, "cuda", c))
+            out = (float(metrics["ce"] + metrics["aux"]),
+                   float(O.global_norm(grads)),
+                   full(grads["layers"][wq_layer]["mixer"]["wq"]).float())
+            del grads
+            _free()
+            return out
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(acfg, device="cuda", generator=gen)
+        plain = first_step(make_ctx(acfg, None), params)
+        meshed = first_step(ctx, M.distribute_params(ctx, acfg, params))
+        del params
+        _free()
+        got = (abs(meshed[0] - plain[0]) / abs(plain[0]),
+               abs(meshed[1] - plain[1]) / abs(plain[1]),
+               rel(meshed[2], plain[2]))
+        same = (meshed[0] == plain[0] and meshed[1] == plain[1]
+                and bool(torch.equal(meshed[2], plain[2])))
+        bounds = (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL)
+        print(f"[mesh] {what}, step 0 vs the no-mesh kernel step: loss "
+              f"{meshed[0]:.6f} / {plain[0]:.6f} (rel {got[0]:.3g}), grad "
+              f"norm {meshed[1]:.6g} / {plain[1]:.6g} (rel {got[1]:.3g}), "
+              f"layer {wq_layer} wq grad {got[2]:.3g}, bounds {bounds}; "
+              f"{'bit-identical' if same else 'NOT bit-identical'} on "
+              f"{name}")
+        if any(g > b for g, b in zip(got, bounds)):
+            raise AssertionError(f"{what} step 0 vs no mesh: {got} beyond "
+                                 f"{bounds}")
+
+        per_step = []
+        trainer.fault_hook = lambda step: per_step.append(
+            dict(flash_attention.launches_by_path))
+        flash_attention.launches = 0
+        flash_attention.launches_by_path = dict.fromkeys(
+            flash_attention.launches_by_path, 0)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train(seed=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = flash_attention.launches
+        per_step.append(dict(flash_attention.launches_by_path))
+        step_launches = [{p: b[p] - a[p] for p in b if b[p] - a[p]}
+                         for a, b in zip(per_step, per_step[1:])]
+        losses = [r.loss for r in trainer.history]
+        for r, n in zip(trainer.history, step_launches):
+            print(f"[mesh] {what} step {r.step}: {1e3 * r.wall_s:.1f} ms, "
+                  f"loss {r.loss:.6f}, flash launches by path {n} on {name}")
+        steady = [r.wall_s for r in trainer.history[1:]] or \
+            [r.wall_s for r in trainer.history]
+        ms = 1e3 * sum(steady) / len(steady)
+        beside = (f", [train]'s no-mesh step {train_ms:.1f} ms "
+                  f"({100 * (ms / train_ms - 1):+.1f} %)" if train_ms
+                  else "")
+        print(f"[mesh] {what}: {ms:.1f} ms a step{beside}, "
+              f"max_memory_allocated {peak:.2f} GiB, flash launches "
+              f"{launches} on {name}")
+        want = 2 * layers
+        if len(losses) != n_steps or not all(
+                torch.isfinite(torch.tensor(losses))) or any(
+                n != {"wgmma": want} for n in step_launches):
+            raise AssertionError(f"{what}: losses {losses}, flash launches "
+                                 f"per step {step_launches}, not {want} on "
+                                 f"wgmma")
+        del trainer
+        _free()
+        return launches
+    finally:
+        dist.destroy_process_group()
 
 
 def step_breakdown(name: str, acfg, shape, trainer, params, opt,
@@ -1916,15 +2051,20 @@ def main() -> int:
             name, ["--arch", arch] + SERVE_ARGS[2:], flash_attention,
             attn_layers, depth)["launches"]
         _free()
-    by_path["train"] = phase_train(
+    by_path["train"], train_ms = phase_train(
         name, ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS,
         (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
-    by_path["train_hubert"] = phase_train(
+    by_path["train_hubert"], _ = phase_train(
         name, HUBERT_ARCH, None, 1, HUBERT_STEPS, HUBERT_BOUNDS,
         HUBERT_CONTROL_BREAKS)
-    by_path["train_mixtral"] = phase_train(
+    by_path["train_mixtral"], mixtral_ms = phase_train(
         name, MIXTRAL_ARCH, MIXTRAL_LAYERS, TRAIN_BATCH, MIXTRAL_STEPS,
         MIXTRAL_BOUNDS, wq_layer=0)
+    by_path["train_mesh"] = phase_mesh(name, ARCH, TRAIN_LAYERS, MESH_STEPS,
+                                       train_ms)
+    by_path["train_mesh_mixtral"] = phase_mesh(
+        name, MIXTRAL_ARCH, MIXTRAL_LAYERS, MESH_MIXTRAL_STEPS, mixtral_ms,
+        expert_sharding="ep")
     kernel["launches_by_main_path"] = by_path
     kernel["launches"] = sum(by_path.values())
     phase_train_small(name)

@@ -1,28 +1,45 @@
 """End-to-end training example of the PyTorch port: the ~100M-parameter
-qwen3-family model of ``examples/train_ps_mode.py`` with
-checkpoint/restart, on ONE card.
+qwen3-family model of ``examples/train_ps_mode.py`` with parameter-server
+(fsdp / ZeRO-3) weight sharding over a device mesh, and
+checkpoint/restart.
 
     PYTHONPATH=src python examples/torch_train_ps_mode.py           # full
     PYTHONPATH=src python examples/torch_train_ps_mode.py --tiny    # smoke
     PYTHONPATH=src python examples/torch_train_ps_mode.py --tiny --device cpu
 
-The JAX example shards the weights parameter-server style (FSDP /
-ZeRO-3) over a (2 data x 2 model) host-device mesh. The port has no
-mesh: one card holds every weight whole, so ``ps_mode`` is set as in the
-reference but shards nothing. The model, the data, the checkpoints and
-the restart are the same. On ``--device cuda`` (the default) attention's
-forward runs in the hand-written flash kernel.
+As in the JAX example, the weights are sharded over the data axis of a
+(data, model) mesh and gathered at use (the pull; the gradients are
+reduce-scattered back, the push). With ``--device cpu`` the mesh is
+2 x 2 over four spawned gloo processes, the JAX example's (2, 2) host
+mesh; on the card (the default) it is 1 x 1, one H100 on NCCL at world
+size 1, with attention's forward in the hand-written flash kernel. The
+model, the data, the checkpoints and the restart are the same.
 """
 import argparse
 import dataclasses
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import AttentionConfig, ShapeSpec
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.launch.mesh import init_single, spawn
+from repro_torch.train.trainer import TrainerConfig, train_on_mesh
+
+
+def run(acfg, shape, tcfg, device):
+    """The Trainer over the mesh: rank 0's record."""
+    if device == "cpu":
+        return spawn(train_on_mesh, 4, acfg, shape, tcfg, DataConfig(seed=0),
+                     (2, 2), "cpu")[0]
+    init_single("cuda")
+    try:
+        return train_on_mesh(acfg, shape, tcfg, DataConfig(seed=0), (1, 1),
+                             "cuda")
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -58,23 +75,22 @@ def main(argv=None):
                                   learning_rate=1e-3,
                                   use_flash_kernel=args.device == "cuda"),
         parallel=dataclasses.replace(base.parallel, fsdp=True, ps_mode=True))
+    mesh = ("a 2x2 (data x model) mesh of 4 gloo CPU processes"
+            if args.device == "cpu" else "a 1x1 mesh on one card (NCCL)")
     print(f"model: {acfg.model.num_params()/1e6:.1f}M params, PS(fsdp) mode "
-          f"on one {args.device} device (no mesh: nothing is sharded)")
+          f"over {mesh}")
 
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ps_")
     tcfg = TrainerConfig(total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=5,
                          log_every=1 if args.tiny else 10)
-    tr = Trainer(acfg, shape, tcfg, DataConfig(seed=0), device=args.device)
-    tr.train()
+    tr = run(acfg, shape, tcfg, args.device)
     losses = [r.loss for r in tr.history]
     print(f"loss: {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
           f"steps")
 
     # restart from checkpoint (fault-tolerance path)
-    tr2 = Trainer(acfg, shape, dataclasses.replace(tcfg,
-                                                   total_steps=steps + 2),
-                  DataConfig(seed=0), device=args.device)
-    tr2.train()
+    tr2 = run(acfg, shape, dataclasses.replace(tcfg, total_steps=steps + 2),
+              args.device)
     print(f"resumed from step {tr2.history[0].step} after restart "
           f"(loss {tr2.history[-1].loss:.4f})")
     return tr, tr2

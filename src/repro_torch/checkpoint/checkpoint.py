@@ -13,8 +13,14 @@ or tuple entry by its index. A tree saved here in the reference's
 parameter layout (``models.convert.to_jax_params``) therefore restores
 in the JAX package, and the other way round. Leaves may be tensors (on
 any device) or numpy arrays; bf16 tensors are written as float32, which
-numpy can read without JAX's dtype extensions. There is no sharding
-argument: one card holds every leaf whole.
+numpy can read without JAX's dtype extensions.
+
+Over a mesh the leaves may be DTensors: ``save`` gathers each whole on
+every rank (the calls are collective) and one writer, rank 0, writes
+the reference's layout; ``restore`` places each array on the target
+leaf's placements, each rank keeping its own shards. The files hold no
+trace of the mesh, so a run restarts on another mesh or on none (the
+reference's elastic restart).
 """
 from __future__ import annotations
 
@@ -26,8 +32,22 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import place
 
 SEP = "$"
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()
@@ -44,6 +64,8 @@ def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()
 
 
 def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
@@ -67,6 +89,18 @@ def _unflatten_like(target, leaves):
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None
          ) -> str:
+    """Write ``tree`` as ``<ckpt_dir>/step_<step>``: every rank gathers,
+    rank 0 writes, and no rank returns before the commit."""
+    arrays = [(name, _numpy(leaf))
+              for name, leaf in _flatten_with_names(tree)]
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if _writer():
+        _write(ckpt_dir, step, arrays, extra)
+    _barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, arrays, extra) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step}")
@@ -74,10 +108,10 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     names = []
-    for name, leaf in _flatten_with_names(tree):
+    for name, arr in arrays:
         fn = os.path.join(tmp, name + ".npy")
         with open(fn, "wb") as f:
-            np.save(f, _numpy(leaf))
+            np.save(f, arr)
             f.flush()
             os.fsync(f.fileno())
         names.append(name)
@@ -90,7 +124,6 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)           # COMMIT
-    return final
 
 
 def _steps(ckpt_dir: str) -> List[int]:
@@ -109,8 +142,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, step: int, target) -> Tuple[Any, Dict]:
     """Load into the structure of ``target``: each leaf takes the dtype
     of the target's leaf there, and its device where that is a tensor
-    (a numpy leaf loads as numpy). Raises ``ValueError`` when the leaf
-    names or a shape differ. Returns (tree, extra)."""
+    (a numpy leaf loads as numpy), and its placements where that is a
+    DTensor. Raises ``ValueError`` when the leaf names or a shape
+    differ. Returns (tree, extra)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -124,7 +158,11 @@ def restore(ckpt_dir: str, step: int, target) -> Tuple[Any, Dict]:
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"checkpoint leaf {name}: shape {arr.shape}, "
                              f"target {tuple(tgt.shape)}")
-        if isinstance(tgt, torch.Tensor):
+        if isinstance(tgt, DTensor):
+            loaded.append(place(torch.from_numpy(arr).to(tgt.device,
+                                                         tgt.dtype),
+                                tgt.device_mesh, tgt.placements))
+        elif isinstance(tgt, torch.Tensor):
             loaded.append(torch.from_numpy(arr).to(tgt.device, tgt.dtype))
         else:
             loaded.append(arr.astype(tgt.dtype))
@@ -132,8 +170,9 @@ def restore(ckpt_dir: str, step: int, target) -> Tuple[Any, Dict]:
 
 
 def prune(ckpt_dir: str, keep: int = 3) -> None:
-    """Remove all but the ``keep`` newest ``step_N`` directories."""
-    if not os.path.isdir(ckpt_dir):
+    """Remove all but the ``keep`` newest ``step_N`` directories (the
+    writer only)."""
+    if not _writer() or not os.path.isdir(ckpt_dir):
         return
     for s in _steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),

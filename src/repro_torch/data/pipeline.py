@@ -7,8 +7,9 @@ vocab skew for the embedding-gather traffic the benchmark suite models).
 
 ``DataConfig`` and ``host_batch`` are numpy, as in the reference, so
 both packages draw the same tokens for the same (seed, step).
-``device_batch`` puts a batch on one device; a single card has no batch
-sharding, so there is no parallel context.
+``device_batch`` puts a batch on one device, or, under a mesh, its rows
+over the batch axes: every rank draws the same global batch and keeps
+its own rows.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.parallel.sharding import NO_MESH, ParallelCtx, place
 
 
 @dataclass(frozen=True)
@@ -57,11 +59,17 @@ def host_batch(acfg: ArchConfig, shape: ShapeSpec, step: int,
     return batch
 
 
-def device_batch(batch: Dict[str, np.ndarray], device
-                 ) -> Dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def device_batch(batch: Dict[str, np.ndarray], device,
+                 ctx: ParallelCtx = NO_MESH) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device``; under a mesh as DTensors,
+    the rows over the batch axes (``launch.steps.batch_shardings``)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in batch.items()}
+    if ctx.mesh is None:
+        return out
+    from repro_torch.launch.steps import batch_shardings
+    pl = batch_shardings(ctx, out)
+    return {k: place(v, ctx.mesh, pl[k]) for k, v in out.items()}
 
 
 def iterate(acfg: ArchConfig, shape: ShapeSpec, device,

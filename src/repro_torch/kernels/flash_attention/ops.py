@@ -188,6 +188,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, causal, window, softcap, scale)
 
 
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, head0: int, n_q: int,
+                 n_heads: int, n_kv: int):
+    """The K/V heads that query heads ``head0 .. head0 + n_q - 1`` (of
+    ``n_heads``) read, as (B, S, kv, dh) with kv | n_q, so that local
+    query head i meets local KV head i // (n_q // kv). ``k`` / ``v`` hold
+    either those queries' own KV heads (split over the mesh like the
+    queries) or all ``n_kv`` of them; global query head h reads KV head
+    h // (n_heads // n_kv). A group that straddles the shard's edge is
+    repeated out to one KV head per query head."""
+    if k.shape[2] * n_heads == n_q * n_kv:          # split alike
+        return k, v
+    rep = n_heads // n_kv
+    lo, hi = head0 // rep, (head0 + n_q - 1) // rep + 1
+    nk = hi - lo
+    if n_q % nk == 0 and all((head0 + i) // rep - lo == i // (n_q // nk)
+                             for i in range(n_q)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor([(head0 + i) // rep for i in range(n_q)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def flash_attention_shard(q, k, v, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None, *, head0: int,
+                          n_heads: int, n_kv: int) -> torch.Tensor:
+    """``flash_attention`` on one shard's heads (what a per-shard body
+    calls): q holds global query heads ``head0 ..`` of ``n_heads``; k /
+    v hold the same heads' KV heads or all ``n_kv`` (``kv_for_heads``).
+    On the card it launches K3 through the autograd function, as
+    ``flash_attention`` does; on the CPU the plain version."""
+    k, v = kv_for_heads(k, v, head0, q.shape[2], n_heads, n_kv)
+    return flash_attention(q, k, v, causal, window, softcap, scale)
+
+
+def flash_attention_sharded(ctx, q, k, v, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None):
+    """``flash_attention`` on DTensors over ``ctx``'s mesh (the
+    reference's ``shard_map`` around its kernel): q (B, Sq, H, dh) with
+    its heads split over ``model`` or whole, k / v (B, Skv, KV, dh) split
+    alike or whole. Each rank runs ``flash_attention_shard`` on its
+    local heads; the output is laid out as q."""
+    from repro_torch.parallel import sharding as sh
+    mi = ctx.mesh.mesh_dim_names.index(ctx.model_axis)
+    H, KV = q.shape[2], k.shape[2]
+    split_heads = q.placements[mi].is_shard(2)
+    head0 = (ctx.coordinate(ctx.model_axis) * (H // ctx.n_model_shards)
+             if split_heads else 0)
+    return sh.shard_map(
+        ctx, lambda ql, kl, vl: flash_attention_shard(
+            ql, kl, vl, causal, window, softcap, scale, head0=head0,
+            n_heads=H, n_kv=KV),
+        (q, k, v), (q.placements,),
+        split=sh.batch_split(ctx, q) + ((ctx.model_axis,) if split_heads
+                                        else ()))
+
+
 #: kernel launches since the last reset (CPU calls launch nothing), in
 #: all and by kernel_path
 flash_attention.launches = 0

@@ -1,9 +1,15 @@
-"""Training launcher, on one device.
+"""Training launcher, on one device or over a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
       [--shape train_4k] [--reduced] [--steps N] [--seq-len S] \
       [--global-batch B] [--ckpt-dir DIR] [--ckpt-every K] [--ps-mode] \
-      [--grad-compression bf16|int8] [--seed N] [--device cuda|cpu]
+      [--mesh dxm|production] [--grad-compression bf16|int8] [--seed N] \
+      [--device cuda|cpu]
+
+  # a 2 x 2 mesh over four CPU processes (gloo)
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-8b --reduced --device cpu --mesh 2x2 --steps 2 \
+      --seq-len 32 --global-batch 4
 
 The model trains on ``--device cuda`` (the default; no card is an
 error, exit 2): attention's forward runs in the hand-written flash
@@ -12,9 +18,15 @@ stays off, because it has no backward (the reference's defines no VJP
 either), so RWKV-6 trains through the plain chunked scan, as the
 reference does. ``--device cpu`` runs every plain PyTorch version.
 
-``--mesh`` exits 2: a mesh needs four cards (ROADMAP.md). ``--ps-mode``
-sets ``fsdp`` / ``ps_mode`` as the reference does; without a mesh that
-changes nothing, exactly as in the reference. The full shapes are large
+``--mesh dxm`` lays the ranks out as (data, model) and trains over that
+mesh (``production``: the reference's (16, 16)); the world comes from
+``torchrun``'s environment, or is this one process (``--mesh 1x1``, no
+``torchrun``). Ranks join under gloo with ``--device cpu`` and NCCL on
+``cuda``, one card each. A mesh whose size is not the world's exits 2.
+``--ps-mode`` sets ``fsdp`` / ``ps_mode`` as the reference does: over a
+mesh the weights are then sharded over the data axis and gathered at
+use; without a mesh it changes nothing, exactly as in the reference.
+Every rank prints the same lines. The full shapes are large
 (``train_4k``: 256 x 4096 tokens); on one card pass ``--global-batch``
 and ``--seq-len``, or ``--reduced`` for the same family at small dims.
 """
@@ -31,6 +43,8 @@ from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config, get_reduced_config, get_shape
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.parallel.sharding import make_ctx
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -64,8 +78,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh", default=None,
-                    help="not ported: a mesh needs four cards "
-                         "(ROADMAP.md); exits 2")
+                    help="e.g. 2x2 (data x model) over the torchrun "
+                         "ranks; 'production' for (16,16)")
     ap.add_argument("--ps-mode", action="store_true",
                     help="parameter-server (ZeRO-3/fsdp) weight sharding; "
                          "without a mesh it changes nothing")
@@ -77,14 +91,19 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                          "with the flash attention kernel)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        ap.error("--mesh is not ported: a mesh needs four cards "
-                 "(ROADMAP.md, Queue 1: parallel/sharding.py, "
-                 "launch/mesh.py)")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA GPU is visible "
                  "(torch.cuda.is_available() is False); pass --device cpu "
                  "to train on the CPU")
+    shape_dm = None
+    if args.mesh and args.mesh != "production":
+        try:
+            shape_dm = tuple(int(x) for x in args.mesh.split("x"))
+        except ValueError:
+            shape_dm = ()
+        if len(shape_dm) != 2 or min(shape_dm) < 1:
+            ap.error(f"--mesh {args.mesh}: expected dxm (e.g. 2x2) or "
+                     f"'production'")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -98,10 +117,29 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
             shape, seq_len=args.seq_len or shape.seq_len,
             global_batch=args.global_batch or shape.global_batch)
 
+    mesh, started = None, False
+    if args.mesh:
+        started = mesh_lib.init_from_env(args.device)
+        try:
+            mesh = (mesh_lib.make_production_mesh(device=args.device)
+                    if shape_dm is None else
+                    mesh_lib.make_mesh(shape_dm, ("data", "model"),
+                                       device=args.device))
+        except ValueError as e:
+            if started:
+                torch.distributed.destroy_process_group()
+            ap.error(f"--mesh {args.mesh}: {e}")
+    ctx = make_ctx(acfg, mesh)
+
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every)
-    trainer = Trainer(acfg, shape, tcfg, DataConfig(), device=args.device)
-    trainer.train(seed=args.seed)
+    trainer = Trainer(acfg, shape, tcfg, DataConfig(), device=args.device,
+                      ctx=ctx)
+    try:
+        trainer.train(seed=args.seed)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     losses = [r.loss for r in trainer.history]
     if not losses:      # resumed from a checkpoint at or past --steps
         print(f"nothing to train: resumed at step "

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Params
 
@@ -72,9 +73,12 @@ def unstack_layers(tree: Dict[str, Any],
 def to_numpy(t) -> np.ndarray:
     """A tensor as a host numpy array. A meta tensor (shape and dtype,
     no data) becomes a zero-stride array of its shape and dtype, which
-    holds no memory: enough for a checkpoint's restore target."""
+    holds no memory: enough for a checkpoint's restore target. A DTensor
+    is gathered whole (a collective: every rank of its mesh calls)."""
     if isinstance(t, np.ndarray):
         return t
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.is_meta:
         dtype = torch.empty((), dtype=t.dtype).numpy().dtype
         return np.broadcast_to(np.zeros((), dtype), tuple(t.shape))

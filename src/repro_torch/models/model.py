@@ -25,6 +25,20 @@ layers beside the hidden states, as the reference does; training adds
 it to the cross-entropy. Nothing here reads ``cfg.n_periods``: a
 served model may be cut to a depth that is not a whole number of
 periods (the parameters are a list of layers).
+
+Over a device mesh (``ctx`` from ``parallel.sharding``; default
+``NO_MESH``) the parameters are DTensors laid out by
+``param_logical_axes`` and the activations between blocks DTensors
+pinned by ``_constrain_act``, as the reference pins them. Where the
+reference leaves the rest to GSPMD, each block here runs per shard
+(``sharding.shard_map``) with its collectives explicit: the fsdp
+weights are gathered at use (the parameter-server pull; the gather's
+backward reduce-scatters the gradients, the push), attention and the
+FFN split their heads and ``d_ff`` over ``model`` (a row-parallel
+output is summed by the redistribute after it), the embedding and the
+loss split the vocab where it is sharded. Only attention layers run
+under a mesh so far: ``check_mesh_support`` refuses the ``rwkv`` and
+``mamba`` mixers.
 """
 from __future__ import annotations
 
@@ -42,6 +56,8 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
                                        init_ffn, init_norm, softcap,
                                        truncated_normal)
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import LP, NO_MESH, ParallelCtx
 
 Params = Dict[str, Any]
 States = List[Params]
@@ -62,6 +78,42 @@ def cast_floats(tree, dtype: torch.dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floats(v, dtype) for v in tree)
     return tree
+
+
+def cast_params_for_compute(ctx: ParallelCtx, acfg: ArchConfig,
+                            params: Params, dtype) -> Params:
+    """cast_floats + re-pin every leaf to its own sharding: the cast
+    runs on each rank's shard, so the fsdp gathers after it move
+    ``dtype`` bytes (the reference's constraint keeps GSPMD from
+    hoisting the gather above the convert)."""
+    params = cast_floats(params, dtype)
+    if ctx.mesh is None:
+        return params
+    return _zip_logical(lambda a, lp: ctx.constrain(a, *lp), params,
+                        param_logical_axes(acfg))
+
+
+def _zip_logical(fn, tree, axes):
+    """``fn(leaf, lp)`` over a tree and its logical axes, side by side."""
+    if isinstance(tree, dict):
+        return {k: _zip_logical(fn, v, axes[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_logical(fn, v, a) for v, a in zip(tree, axes)]
+    return fn(tree, axes)
+
+
+def check_mesh_support(acfg: ArchConfig, ctx: ParallelCtx) -> None:
+    """Raise ``NotImplementedError`` for a layer kind that does not run
+    over a mesh yet: the ``rwkv`` and ``mamba`` mixers (ROADMAP.md,
+    Queue 1 item 15b)."""
+    if ctx.mesh is None:
+        return
+    kinds = sorted(set(acfg.model.layer_pattern) - {"attn"})
+    if kinds:
+        raise NotImplementedError(
+            f"{acfg.model.name}: the {'/'.join(kinds)} mixer does not run "
+            f"over a device mesh yet (ROADMAP.md, Queue 1 item 15b); "
+            f"train it without --mesh")
 
 
 # =========================================================================
@@ -111,6 +163,100 @@ def init_params(acfg: ArchConfig, *, device, generator: torch.Generator,
     return params
 
 
+# ---------------- logical sharding of every parameter ---------------------
+
+def _norm_axes(cfg: ModelConfig) -> Params:
+    return ({"scale": LP(None)} if cfg.norm == "rmsnorm"
+            else {"scale": LP(None), "bias": LP(None)})
+
+
+def _layer_axes(acfg: ArchConfig, li: int) -> Params:
+    """The reference's axes of period position ``li % period`` without
+    its leading ``layers`` axis."""
+    cfg = acfg.model
+    pos = li % cfg.pattern_period
+    kind = cfg.layer_pattern[pos]
+    p: Params = {"norm1": _norm_axes(cfg), "norm2": _norm_axes(cfg)}
+    if kind == "attn":
+        att = cfg.attention
+        m = {"wq": LP("fsdp", "heads"), "wk": LP("fsdp", "heads"),
+             "wv": LP("fsdp", "heads"), "wo": LP("heads", "fsdp")}
+        if att.qkv_bias:
+            m.update({"bq": LP("heads"), "bk": LP("heads"),
+                      "bv": LP("heads")})
+        if att.qk_norm:
+            m.update({"q_norm": LP(None), "k_norm": LP(None)})
+        p["mixer"] = m
+    elif kind == "mamba":
+        p["mixer"] = {
+            "z_proj": LP("fsdp", "heads"), "x_proj": LP("fsdp", "heads"),
+            "bc_proj": LP("fsdp", None), "dt_proj": LP("fsdp", None),
+            "conv_w": LP(None, "heads"), "conv_b": LP("heads"),
+            "conv_w_bc": LP(None, None), "conv_b_bc": LP(None),
+            "a_log": LP(None), "d_skip": LP(None), "dt_bias": LP(None),
+            "norm": LP("heads"), "out_proj": LP("heads", "fsdp")}
+    elif kind == "rwkv":
+        p["mixer"] = {
+            "mu_w": LP(None), "mu_r": LP(None), "mu_k": LP(None),
+            "mu_v": LP(None), "mu_g": LP(None),
+            "w0": LP(None, None), "w_lora_a": LP("fsdp", None),
+            "w_lora_b": LP(None, None), "u": LP(None, None),
+            "wr": LP("fsdp", "heads"), "wk": LP("fsdp", "heads"),
+            "wv": LP("fsdp", "heads"), "wg": LP("fsdp", "heads"),
+            "wo": LP("heads", "fsdp"), "ln_x": LP(None),
+            "mu_k_cm": LP(None), "mu_r_cm": LP(None),
+            "wk_cm": LP("fsdp", "d_ff"), "wv_cm": LP("d_ff", "fsdp"),
+            "wr_cm": LP("fsdp", "heads")}
+        return p
+    if cfg.moe_at(pos):
+        es = acfg.parallel.expert_sharding or cfg.moe.expert_sharding
+        f = moe_lib.moe_param_logical_axes(es)
+        if cfg.ffn_activation not in ("swiglu", "geglu"):
+            f = {k: v for k, v in f.items() if k != "w_gate"}
+    else:
+        f = {"w_up": LP("fsdp", "d_ff"), "w_down": LP("d_ff", "fsdp")}
+        if cfg.ffn_activation in ("swiglu", "geglu"):
+            f["w_gate"] = LP("fsdp", "d_ff")
+    p["ffn"] = f
+    return p
+
+
+def vocab_axis(cfg: ModelConfig) -> Optional[str]:
+    """Tiny vocabs (hubert's 504-label codebook) cannot shard over the
+    16-way model axis, and gain nothing from it: replicated."""
+    return "vocab" if (cfg.vocab_size % 16 == 0
+                       and cfg.vocab_size >= 4096) else None
+
+
+def param_logical_axes(acfg: ArchConfig) -> Params:
+    """A tree matching ``init_params``' structure; leaves are ``LP``s of
+    *logical* axis names (see ``parallel.sharding.logical_to_physical``):
+    the reference's axes per layer, without its stacked ``layers``
+    axis."""
+    cfg = acfg.model
+    vocab_ax = vocab_axis(cfg)
+    axes: Params = {
+        "embed": LP(vocab_ax, "fsdp"),
+        "layers": [_layer_axes(acfg, li) for li in range(cfg.num_layers)],
+        "final_norm": _norm_axes(cfg),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = LP("fsdp", vocab_ax)
+    return axes
+
+
+def distribute_params(ctx: ParallelCtx, acfg: ArchConfig,
+                      params: Params) -> Params:
+    """Whole parameters (the same on every rank) as DTensors on their
+    placements: each rank keeps its shards, nothing is sent. The
+    identity without a mesh."""
+    if ctx.mesh is None:
+        return params
+    return _zip_logical(
+        lambda a, lp: sh.place(a, ctx.mesh, ctx.placements(*lp)), params,
+        param_logical_axes(acfg))
+
+
 # =========================================================================
 # Layer application
 # =========================================================================
@@ -119,13 +265,15 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
                  state: Optional[Params], mode: str,
                  positions: Optional[torch.Tensor],
                  max_seq: Optional[int], use_flash: bool,
-                 use_rwkv_kernel: bool
+                 use_rwkv_kernel: bool, ctx: ParallelCtx = NO_MESH
                  ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """One layer. Returns (x, new_state, aux_loss)."""
+    """One layer. Returns (x, new_state, aux_loss); under a mesh aux is
+    the local value of the mean over the shards (the same on every
+    rank)."""
     pos = li % cfg.pattern_period
     kind = cfg.layer_pattern[pos]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(cfg, p["norm1"], x)
+    h = _norm(ctx, cfg, p["norm1"], x)
     if kind == "rwkv":
         h, new_state = _rwkv_time_mix(cfg, p, h, state, mode,
                                       use_rwkv_kernel)
@@ -133,9 +281,9 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
         h, new_state = _mamba_mix(cfg, p, h, state, mode)
     else:
         h, new_state = _attention(cfg, li, p, h, state, mode, positions,
-                                  max_seq, use_flash)
-    x = x + h.to(x.dtype)
-    h2 = apply_norm(cfg, p["norm2"], x)
+                                  max_seq, use_flash, ctx)
+    x = _constrain_act(ctx, x + h.to(x.dtype))
+    h2 = _norm(ctx, cfg, p["norm2"], x)
     if kind == "rwkv":   # the channel mix in place of the FFN
         h2, cm_new = ssm_lib.rwkv6_channel_mix(p["mixer"], h2, state)
         if new_state is not None:
@@ -143,19 +291,63 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
     elif cfg.moe_at(pos):
         # decode is dropless (serving must not drop a live token's experts)
         h2, aux = moe_lib.apply_moe(cfg, cfg.moe, p["ffn"], h2,
-                                    dropless=(mode == "decode"))
+                                    dropless=(mode == "decode"), ctx=ctx)
     else:
-        h2 = apply_ffn(cfg, p["ffn"], h2)
-    x = x + h2.to(x.dtype)
+        h2 = _ffn(ctx, cfg, p["ffn"], h2)
+    x = _constrain_act(ctx, x + h2.to(x.dtype))
     return x, new_state, aux
+
+
+def _constrain_act(ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
+    """Activations: batch over (pod, data) when divisible, else replicated
+    (single-stream decode)."""
+    if x.shape[0] % max(ctx.n_batch_shards, 1) == 0:
+        return ctx.constrain(x, "batch", None, None)
+    return ctx.constrain(x, None, None, None)
+
+
+def _norm(ctx: ParallelCtx, cfg: ModelConfig, p: Params,
+          x: torch.Tensor) -> torch.Tensor:
+    """``apply_norm``; under a mesh per shard of the batch (the scale is
+    replicated)."""
+    if ctx.mesh is None:
+        return apply_norm(cfg, p, x)
+    keys = sorted(p)
+    return sh.shard_map(
+        ctx, lambda xl, *w: apply_norm(cfg, dict(zip(keys, w)), xl),
+        (x, *(p[k] for k in keys)), (x.placements,),
+        split=sh.batch_split(ctx, x))
+
+
+def _ffn(ctx: ParallelCtx, cfg: ModelConfig, p: Params,
+         x: torch.Tensor) -> torch.Tensor:
+    """``apply_ffn``; under a mesh tensor-parallel over ``d_ff``: the up
+    and gate columns and the down rows of each rank's ``d_ff`` slice
+    (fsdp shards gathered first), the partial outputs summed over
+    ``model``."""
+    if ctx.mesh is None:
+        return apply_ffn(cfg, p, x)
+    keys = sorted(p)
+    w = [ctx.constrain(p[k], *(("d_ff", None) if k == "w_down"
+                               else (None, "d_ff"))) for k in keys]
+    split = sh.batch_split(ctx, x) + (ctx.model_axis,)
+    y = sh.shard_map(
+        ctx, lambda xl, *wl: apply_ffn(cfg, dict(zip(keys, wl)), xl),
+        (x, *w), (sh.summed_over(ctx, x.placements, (ctx.model_axis,)),),
+        split=split)
+    return y.redistribute(ctx.mesh, x.placements)
 
 
 def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
                state: Optional[Params], mode: str,
                positions: Optional[torch.Tensor], max_seq: Optional[int],
-               use_flash: bool) -> Tuple[torch.Tensor, Optional[Params]]:
+               use_flash: bool, ctx: ParallelCtx = NO_MESH
+               ) -> Tuple[torch.Tensor, Optional[Params]]:
     window = cfg.window_at(li % cfg.pattern_period)
     att = cfg.attention
+    if ctx.mesh is not None:
+        return _attention_sharded(ctx, cfg, p, h, state, mode, positions,
+                                  max_seq, use_flash, window)
     fwd = (attn_lib.attention_forward_flash if use_flash
            else attn_lib.attention_forward)
     if mode == "decode":
@@ -168,6 +360,49 @@ def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
         return h, {"mixer": _cache_from_prefill(kv, window, max_seq)}
     return fwd(p["mixer"], att, h, positions, window=window,
                causal=att.causal), None
+
+
+def _attention_sharded(ctx: ParallelCtx, cfg: ModelConfig, p: Params,
+                       h, state, mode, positions, max_seq, use_flash,
+                       window):
+    att = cfg.attention
+    if mode == "decode":
+        h, cache = attn_lib.attention_decode_sharded(
+            ctx, p["mixer"], att, h, state["mixer"], window=window)
+        return h, {"mixer": cache}
+    out = attn_lib.attention_forward_sharded(
+        ctx, p["mixer"], att, h, positions, window=window,
+        causal=att.causal, use_flash=use_flash,
+        return_kv=(mode == "prefill"))
+    if mode != "prefill":
+        return out, None
+    h, (k, v) = out
+    return h, {"mixer": _sharded_cache(ctx, k, v, window, max_seq)}
+
+
+def _sharded_cache(ctx: ParallelCtx, k, v, window: Optional[int],
+                   max_seq: int) -> KVCache:
+    """Prefill K/V as the ring-buffer cache in the decode layout of
+    ``state_logical_axes``: heads whole, the slots split over ``model``
+    (or, for one stream, over the whole mesh)."""
+    rep = tuple(p if p.is_shard(0) else sh.Replicate()
+                for p in k.placements)
+    k, v = k.redistribute(ctx.mesh, rep), v.redistribute(ctx.mesh, rep)
+    cache = _cache_from_prefill((k.to_local(), v.to_local()), window,
+                                max_seq)
+    pl = ctx.placements(*_cache_axes(ctx, k.shape[0]))
+
+    def put(t):
+        return sh.DTensor.from_local(t, ctx.mesh, rep, run_check=False) \
+            .redistribute(ctx.mesh, pl)
+    return KVCache(k=put(cache.k), v=put(cache.v), index=cache.index)
+
+
+def _cache_axes(ctx: ParallelCtx, batch: int) -> LP:
+    """A KV cache's (B, Sc, KV, dh) axes: see ``state_logical_axes``."""
+    single = batch == 1 or batch % max(ctx.n_batch_shards, 1) != 0
+    return LP(None if single else "batch",
+              "kv_seq_all" if single else "kv_seq", None, None)
 
 
 def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -241,11 +476,54 @@ def _cache_from_prefill(kv, window: Optional[int],
 # Full model
 # =========================================================================
 
-def _embed_in(cfg, params, tokens, embeds, compute_dtype):
+def _embed_in(ctx, cfg, params, tokens, embeds, compute_dtype):
     if cfg.frontend is not None:
         assert embeds is not None, f"{cfg.name} needs frontend embeds"
-        return embeds.to(compute_dtype)
-    return params["embed"][tokens.long()].to(compute_dtype)
+        return _constrain_act(ctx, embeds.to(compute_dtype))
+    if ctx.mesh is None:
+        return params["embed"][tokens.long()].to(compute_dtype)
+    # the vocab rows this rank holds; a token elsewhere reads zeros, and
+    # the sum over ``model`` takes each row from its one holder
+    vocab_ax = vocab_axis(cfg)
+    table = ctx.constrain(params["embed"], vocab_ax, None)
+    tokens = _constrain_tokens(ctx, tokens)
+    split = sh.batch_split(ctx, tokens)
+    if vocab_ax is not None:
+        split += (ctx.model_axis,)
+    off = (ctx.coordinate(ctx.model_axis) * table.to_local().shape[0]
+           if vocab_ax is not None else 0)
+
+    def body(tok, tab):
+        t = tok.long() - off
+        ok = (t >= 0) & (t < tab.shape[0])
+        rows = tab[t.clamp(0, tab.shape[0] - 1)]
+        return torch.where(ok[..., None], rows, 0).to(compute_dtype)
+    x = sh.shard_map(ctx, body, (tokens, table),
+                     (sh.summed_over(ctx, tokens.placements,
+                                     (ctx.model_axis,) if vocab_ax
+                                     else ()),),
+                     split=split)
+    return _constrain_act(ctx, x)
+
+
+def _constrain_tokens(ctx: ParallelCtx, t):
+    """Token ids or labels (B, S) on the activations' batch layout."""
+    if t.shape[0] % max(ctx.n_batch_shards, 1) == 0:
+        return ctx.constrain(t, "batch", None)
+    return ctx.constrain(t, None, None)
+
+
+def _head(ctx: ParallelCtx, cfg: ModelConfig, params: Params):
+    """The output projection (d, V) gathered over fsdp (vocab still split
+    where ``vocab_axis`` shards it); transposed from the embedding when
+    tied."""
+    vocab_ax = vocab_axis(cfg)
+    if cfg.tie_embeddings:
+        head = params["embed"]
+        return head.T if ctx.mesh is None else \
+            ctx.constrain(head, vocab_ax, None)
+    return params["lm_head"] if ctx.mesh is None else \
+        ctx.constrain(params["lm_head"], None, vocab_ax)
 
 
 def forward(acfg: ArchConfig, params: Params, *,
@@ -253,7 +531,8 @@ def forward(acfg: ArchConfig, params: Params, *,
             embeds: Optional[torch.Tensor] = None,
             states: Optional[States] = None,
             mode: str = "train",
-            max_seq: Optional[int] = None
+            max_seq: Optional[int] = None,
+            ctx: ParallelCtx = NO_MESH
             ) -> Tuple[torch.Tensor, Optional[States], torch.Tensor]:
     """Returns (hidden (B,S,d) after final norm, new_states, aux_loss):
     aux is the MoE layers' load-balance loss summed over layers (0 for a
@@ -261,15 +540,18 @@ def forward(acfg: ArchConfig, params: Params, *,
 
     ``max_seq``: prefill only — KV-cache slot count to allocate (defaults
     to the prefill length itself, i.e. no room to decode further).
+    Under a mesh ``params`` are DTensors (``distribute_params``), the
+    hidden states come back a DTensor and aux a plain 0-d tensor.
     """
     cfg = acfg.model
+    check_mesh_support(acfg, ctx)
     compute_dtype = dtype_of(acfg.train.compute_dtype)
     if compute_dtype != torch.float32:
-        params = cast_floats(params, compute_dtype)
+        params = cast_params_for_compute(ctx, acfg, params, compute_dtype)
     B, S = (tokens.shape if tokens is not None else embeds.shape[:2])
     if mode == "prefill" and max_seq is None:
         max_seq = S
-    x = _embed_in(cfg, params, tokens, embeds, compute_dtype)
+    x = _embed_in(ctx, cfg, params, tokens, embeds, compute_dtype)
     positions = None  # decode: attention reads positions from its cache
     if mode != "decode":
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -284,49 +566,114 @@ def forward(acfg: ArchConfig, params: Params, *,
         st = states[li] if states is not None else None
         x, ns, aux_l = layer(cfg, li, p, x, st, mode, positions, max_seq,
                              acfg.train.use_flash_kernel,
-                             acfg.train.use_rwkv_kernel)
+                             acfg.train.use_rwkv_kernel, ctx)
         aux = aux + aux_l
         if new_states is not None:
             new_states.append(ns)
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = _norm(ctx, cfg, params["final_norm"], x)
     return x, new_states, aux
 
 
-def logits_fn(acfg: ArchConfig, params: Params,
-              hidden: torch.Tensor) -> torch.Tensor:
+def logits_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
+              ctx: ParallelCtx = NO_MESH) -> torch.Tensor:
+    """Under a mesh, a DTensor laid out (batch, None, vocab)."""
     cfg = acfg.model
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = hidden @ head.to(hidden.dtype)
-    return softcap(logits, cfg.final_logit_softcap)
+    head = _head(ctx, cfg, params)
+    if ctx.mesh is None:
+        logits = hidden @ head.to(hidden.dtype)
+        return softcap(logits, cfg.final_logit_softcap)
+    tied = cfg.tie_embeddings
+    split = sh.batch_split(ctx, hidden)
+    vocab_split = vocab_axis(cfg) is not None
+    out_pl = list(hidden.placements)
+    if vocab_split:
+        out_pl[ctx.mesh.mesh_dim_names.index(ctx.model_axis)] = sh.Shard(2)
+        split += (ctx.model_axis,)
+
+    def body(h, w):
+        w = (w.T if tied else w).to(h.dtype)
+        return softcap(h @ w, cfg.final_logit_softcap)
+    logits = sh.shard_map(ctx, body, (hidden, head), (tuple(out_pl),),
+                          split=split)
+    b_ax = "batch" if hidden.shape[0] % ctx.n_batch_shards == 0 else None
+    return ctx.constrain(logits, b_ax, None, "vocab")
 
 
 def loss_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
-            labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+            labels: torch.Tensor, chunk: int = 512,
+            ctx: ParallelCtx = NO_MESH) -> torch.Tensor:
     """Chunked (over seq) cross-entropy, so (B,S,V) logits never fully
     materialize: each chunk's logits in fp32, labels of -1 masked out,
     the mean over the unmasked ones. labels: (B,S) int. Autograd keeps
     each chunk's fp32 logits for the backward (the reference's scan
-    keeps the same residuals)."""
+    keeps the same residuals). Under a mesh each rank takes its rows of
+    the batch and, where ``vocab_axis`` shards the vocab, its columns:
+    the logsumexp and the true logit are summed over ``model``; the
+    result is a plain 0-d tensor, the same on every rank."""
     cfg = acfg.model
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"loss_fn: sequence {S} is not a multiple of the "
                          f"chunk {chunk}")
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    head = head.to(hidden.dtype)
+    head = _head(ctx, cfg, params)
+    if ctx.mesh is None:
+        tot, cnt = _ce_sums(cfg, hidden, labels, head.to(hidden.dtype),
+                            chunk)
+        return tot / torch.clamp(cnt, min=1.0)
+    tied = cfg.tie_embeddings
+    labels = _constrain_tokens(ctx, labels)
+    split = sh.batch_split(ctx, hidden)
+    vocab = None
+    if vocab_axis(cfg) is not None and ctx.n_model_shards > 1:
+        split += (ctx.model_axis,)
+        n_local = head.to_local().shape[0 if tied else 1]
+        vocab = (ctx.coordinate(ctx.model_axis) * n_local,
+                 ctx.group(ctx.model_axis))
+
+    def body(h, y, w):
+        w = (w.T if tied else w).to(h.dtype)
+        return _ce_sums(cfg, h, y, w, chunk, vocab)
+    # the sums over the batch are per shard; over model they are whole
+    pl = sh.summed_over(ctx, [sh.Replicate()] * ctx.mesh.ndim,
+                        sh.batch_split(ctx, hidden))
+    tot, cnt = sh.shard_map(ctx, body, (hidden, labels, head), (pl, pl),
+                            split=split)
+    rep = [sh.Replicate()] * ctx.mesh.ndim
+    tot, cnt = (t.redistribute(ctx.mesh, rep).to_local() for t in (tot, cnt))
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_sums(cfg: ModelConfig, hidden, labels, head, chunk: int,
+             vocab=None):
+    """(sum of the masked NLL, count of unmasked labels) over the chunks.
+    ``vocab``: None, or (first column held, process group) when ``head``
+    holds only this rank's columns of the vocab."""
+    S = hidden.shape[1]
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         logits = softcap(h @ head, cfg.final_logit_softcap).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        true_logit = logits.gather(
-            -1, y.clamp(min=0).long()[..., None])[..., 0]
+        if vocab is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            true_logit = logits.gather(
+                -1, y.clamp(min=0).long()[..., None])[..., 0]
+        else:
+            off, group = vocab
+            m = sh.all_reduce_max(logits.amax(dim=-1), group)
+            se = torch.exp(logits - m[..., None]).sum(dim=-1)
+            lse = torch.log(sh.all_reduce_sum(se, group)) + m
+            t = y.long() - off
+            ok = (t >= 0) & (t < logits.shape[-1])
+            mine = logits.gather(
+                -1, t.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+            true_logit = sh.all_reduce_sum(torch.where(ok, mine, 0.0),
+                                           group)
         mask = (y >= 0).float()
         tot = tot + torch.sum((lse - true_logit) * mask)
         cnt = cnt + torch.sum(mask)
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 # =========================================================================
@@ -334,10 +681,12 @@ def loss_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
 # =========================================================================
 
 def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
-                device) -> States:
+                device, ctx: ParallelCtx = NO_MESH) -> States:
     """Fresh per-layer states: empty KV caches; zero RWKV and Mamba
-    states (fp32, as the reference makes them)."""
+    states (fp32, as the reference makes them). Under a mesh, DTensors
+    laid out by ``state_logical_axes``."""
     cfg = acfg.model
+    check_mesh_support(acfg, ctx)
     cache_dtype = dtype_of(acfg.train.compute_dtype)
 
     def one_layer(li: int) -> Params:
@@ -352,5 +701,46 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
         return {"mixer": attn_lib.init_cache(
             cfg.attention, batch, max_seq, cfg.window_at(pos), cache_dtype,
             device=device)}
+
+    states = [one_layer(li) for li in range(cfg.num_layers)]
+    if ctx.mesh is None:
+        return states
+
+    def put(a, lp):
+        return a if isinstance(a, int) else \
+            sh.place(a, ctx.mesh, ctx.placements(*lp))
+    axes = state_logical_axes(acfg, batch, ctx)
+    return [{"mixer": KVCache(*(put(a, lp) for a, lp in
+                                zip(st["mixer"], ax["mixer"])))}
+            for st, ax in zip(states, axes)]
+
+
+def state_logical_axes(acfg: ArchConfig, batch: int,
+                       ctx: ParallelCtx = NO_MESH) -> States:
+    """Logical axes for decode states (mirrors ``init_states``; the
+    reference's per position, without its ``layers`` axis).
+
+    KV caches shard their SEQUENCE dim (flash-decoding style): over
+    'model' for batched decode (batch rides (pod, data)), over the whole
+    mesh for single-stream decode (one stream, or a batch the batch
+    shards do not divide). KV heads stay replicated."""
+    cfg = acfg.model
+    single = batch == 1 or batch % max(ctx.n_batch_shards, 1) != 0
+    b_ax = None if single else "batch"
+
+    def one_layer(li: int) -> Params:
+        kind = cfg.layer_pattern[li % cfg.pattern_period]
+        if kind == "attn":
+            kv = _cache_axes(ctx, batch)
+            return {"mixer": KVCache(k=kv, v=kv, index=LP())}
+        if kind == "mamba":
+            return {"mixer": {"h": LP(b_ax, "heads", None, None),
+                              "conv": LP(b_ax, None, "heads"),
+                              "conv_bc": LP(b_ax, None, None)}}
+        if kind == "rwkv":
+            return {"mixer": {"S": LP(b_ax, "heads", None, None),
+                              "shift_tm": LP(b_ax, None)},
+                    "shift_cm": LP(b_ax, None)}
+        raise ValueError(kind)
 
     return [one_layer(li) for li in range(cfg.num_layers)]

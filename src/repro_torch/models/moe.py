@@ -10,8 +10,15 @@ token's k outputs with its gate weights. Assignments beyond capacity
 C = ceil4(T*k*cf/E) (at least 4, at most T) go to an overflow row and
 are dropped; decode is dropless (C = T).
 
-The reference's ``shard_map`` path (tensor- or expert-parallel experts
-over a mesh) is one shard here: the mesh is not ported.
+Over a mesh (``ctx``) the block runs per shard, as the reference's
+``shard_map`` body does: ``tp`` keeps every expert on every rank and
+splits ``d_ff`` over ``model``; ``ep`` splits the experts over
+``model``, each rank taking the assignments of its own experts and
+parking the rest. Both sum the token outputs over ``model``. With fsdp
+the expert weights are gathered over the batch axes on entry (the
+parameter-server pull; the gather's backward reduce-scatters the
+gradients, the push). Capacity is counted from each shard's own
+tokens, so a mesh drops what each data shard would drop alone.
 
 The combine gathers each token's k outputs in flat (token, slot) order
 and sums them, where the reference scatter-adds them in sorted order:
@@ -28,6 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import _mm, activation, dense_init, \
     truncated_normal
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import LP, NO_MESH, ParallelCtx
 
 
 def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
@@ -52,6 +61,15 @@ def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
     if cfg.ffn_activation in ("swiglu", "geglu"):
         p["w_gate"] = experts(d, f, E * d)
     return p
+
+
+def moe_param_logical_axes(ctx_es: str) -> dict:
+    e = "expert" if ctx_es == "ep" else None
+    ff = None if ctx_es == "ep" else "d_ff"
+    return {"router": LP(None, None),
+            "w_up": LP(e, "fsdp", ff),
+            "w_gate": LP(e, "fsdp", ff),
+            "w_down": LP(e, ff, "fsdp")}
 
 
 def _capacity(moe: MoEConfig, n_tokens: int, dropless: bool) -> int:
@@ -98,9 +116,13 @@ def _expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor
 
 
 def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
-               *, dropless: bool = False
+               *, dropless: bool = False, n_local_experts: int = 0,
+               expert_offset: int = 0, es: str = "tp"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE over tokens x: (T, d). Returns (out (T, d), aux_loss)."""
+    """MoE over tokens x: (T, d). Returns (out (T, d), aux_loss). With
+    ``es="ep"`` the weights hold experts ``expert_offset ..
+    expert_offset + n_local_experts - 1`` only: the other assignments
+    are parked (dropped here, taken by the rank that holds them)."""
     T, d = x.shape
     E, k = moe.num_experts, moe.top_k
     C = _capacity(moe, T, dropless)
@@ -113,16 +135,28 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
 
     flat_e = top_i.reshape(-1)                           # (T*k,)
     flat_t = torch.arange(T * k, device=x.device) // k
-    order, dest_sorted, keep_sorted = _dispatch_indices(flat_e, E, C)
+    if es == "ep":
+        rel = flat_e - expert_offset
+        in_range = (rel >= 0) & (rel < n_local_experts)
+        eff_e = torch.where(in_range, rel, n_local_experts)   # park
+        order, dest_sorted, keep_sorted = _dispatch_indices(
+            eff_e, n_local_experts + 1, C)
+        keep_sorted &= eff_e[order] < n_local_experts
+        dest_sorted = torch.where(keep_sorted, dest_sorted,
+                                  n_local_experts * C)
+        n_e = n_local_experts
+    else:
+        order, dest_sorted, keep_sorted = _dispatch_indices(flat_e, E, C)
+        n_e = E
     # each assignment's buffer row, in flat (token, slot) order
     dest = torch.empty_like(dest_sorted).index_copy_(0, order, dest_sorted)
     keep = torch.empty_like(keep_sorted).index_copy_(0, order, keep_sorted)
 
     # kept rows are distinct; the overflow row only ever receives zeros
     rows = torch.where(keep[:, None], x[flat_t], 0)
-    buf = x.new_zeros((E * C + 1, d)).index_put((dest,), rows)
-    out_buf = _expert_ffn(cfg, p, buf[:E * C].reshape(E, C, d))
-    out_buf = torch.cat([out_buf.reshape(E * C, d),
+    buf = x.new_zeros((n_e * C + 1, d)).index_put((dest,), rows)
+    out_buf = _expert_ffn(cfg, p, buf[:n_e * C].reshape(n_e, C, d))
+    out_buf = torch.cat([out_buf.reshape(n_e * C, d),
                          out_buf.new_zeros((1, d))])
     w = (top_w.reshape(-1) * keep).to(out_buf.dtype)
     y = (out_buf[dest] * w[:, None]).to(x.dtype).reshape(T, k, d)
@@ -139,10 +173,51 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
 
 
 def apply_moe(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
-              *, dropless: bool = False
+              *, dropless: bool = False, ctx: ParallelCtx = NO_MESH
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), aux scalar)."""
+    """x: (B, S, d) -> (out (B, S, d), aux scalar). Under a mesh x and
+    ``p`` are DTensors; out comes back on x's layout and aux as the
+    plain mean over the shards (the same on every rank)."""
     B, S, d = x.shape
-    out, aux = _moe_local(cfg, moe, p, x.reshape(B * S, d),
-                          dropless=dropless)
-    return out.reshape(B, S, d), aux
+    if ctx.mesh is None:
+        out, aux = _moe_local(cfg, moe, p, x.reshape(B * S, d),
+                              dropless=dropless)
+        return out.reshape(B, S, d), aux
+
+    es, mx = ctx.expert_sharding, ctx.model_axis
+    la = moe_param_logical_axes(es)
+    keys = sorted(p)
+    # the PS pull: fsdp shards gathered over the batch axes
+    w = [ctx.constrain(p[k], *(None if a == "fsdp" else a for a in la[k]))
+         for k in keys]
+    # a batch the batch shards do not divide (single-stream decode) runs
+    # replicated
+    x_pl = x.placements
+    if B % ctx.n_batch_shards:
+        x = ctx.constrain(x, None, None, None)
+    split = sh.batch_split(ctx, x) + (mx,)
+    n_shards = 1
+    for a in split:
+        n_shards *= ctx.size(a)
+    if es == "ep":
+        n_local = moe.num_experts // ctx.n_model_shards
+        off = ctx.coordinate(mx) * n_local
+    else:
+        n_local, off = moe.num_experts, 0
+
+    def body(xl, *wl):
+        Bl = xl.shape[0]
+        y, aux = _moe_local(cfg, moe, dict(zip(keys, wl)),
+                            xl.reshape(Bl * S, d), dropless=dropless,
+                            n_local_experts=n_local, expert_offset=off,
+                            es=es)
+        # the mean over the shards that split the work (the pmean)
+        return y.reshape(Bl, S, d), aux / n_shards
+
+    rep = [sh.Replicate()] * ctx.mesh.ndim
+    y, aux = sh.shard_map(
+        ctx, body, (x, *w),
+        (sh.summed_over(ctx, x.placements, (mx,)),
+         sh.summed_over(ctx, rep, split)), split=split)
+    y = y.redistribute(ctx.mesh, x_pl)
+    return y, aux.redistribute(ctx.mesh, rep).to_local()

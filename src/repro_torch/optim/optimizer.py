@@ -9,8 +9,14 @@ returns new parameter and state tensors, so a caller that keeps the old
 ones can retry a step from them. Scalars (the step, the learning rate,
 the norm) are 0-d tensors on the parameters' device, so nothing here
 waits for the card. Compression quantizes the gradient estimate with an
-error-feedback residual, as the reference does; on one card there is no
-data-parallel reduction for it to shrink.
+error-feedback residual, as the reference does.
+
+Over a mesh the parameters, gradients and state are DTensors on the
+parameters' placements (ZeRO-3: each rank keeps its shard of every
+moment). The elementwise updates run on each rank's shard; what the
+reference reduces over whole tensors is reduced across the shards: the
+global norm, the int8 compression scale, Adafactor's row and column
+means and its update RMS.
 """
 from __future__ import annotations
 
@@ -19,11 +25,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.convert import (from_jax_params, map_leaves,
                                         stack_layers, to_jax_params,
                                         to_numpy, unstack_layers)
+from repro_torch.parallel.sharding import place
 
 Params = Any
 
@@ -62,15 +71,83 @@ def _stacked(tree, period: int):
     """A tree with ``layers`` in the reference's stacked layout
     (``models.convert.stack_layers``: copies); any other tree as it is."""
     if isinstance(tree, dict) and "layers" in tree:
-        return stack_layers(tree, period)
+        return stack_layers(tree, period, _stack)
     return tree
 
 
 def _unstacked(tree):
     """The inverse of ``_stacked``."""
     if isinstance(tree, dict) and "blocks" in tree:
-        return unstack_layers(tree)
+        return unstack_layers(tree, _take)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# DTensors: the updates run on each rank's shard
+# ---------------------------------------------------------------------------
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(t: torch.Tensor, ref, placements=None, shape=None):
+    """The local tensor ``t`` as a DTensor laid out as ``ref`` (or on
+    ``placements`` with global ``shape``); ``t`` itself when ``ref`` is a
+    plain tensor."""
+    if not isinstance(ref, DTensor):
+        return t
+    placements = tuple(ref.placements) if placements is None else placements
+    shape = tuple(ref.shape) if shape is None else tuple(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, ref.device_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _reduce(t: torch.Tensor, ref, dims=None, op=dist.ReduceOp.SUM):
+    """Reduce the local partial ``t`` over the ranks that split the
+    tensor dims ``dims`` (all dims when None) of the DTensor ``ref``;
+    ``t`` itself for a plain ``ref``."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    for i, p in enumerate(ref.placements):
+        if p.is_shard() and (dims is None or p.dim in dims):
+            dist.all_reduce(t, op=op, group=mesh.get_group(i))
+    return t
+
+
+def _stack(leaves: List[torch.Tensor]):
+    """``torch.stack`` of one period position's layers; DTensors stack
+    their shards, each shard dim one further."""
+    if not isinstance(leaves[0], DTensor):
+        return torch.stack(leaves)
+    ref = leaves[0]
+    pl = tuple(Shard(p.dim + 1) if p.is_shard() else p
+               for p in ref.placements)
+    return _like(torch.stack([t.to_local() for t in leaves]), ref, pl,
+                 (len(leaves),) + tuple(ref.shape))
+
+
+def _take(a, i: int):
+    """Layer ``i`` of a stacked leaf (the inverse of ``_stack``)."""
+    if not isinstance(a, DTensor):
+        return a[i]
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
+               for p in a.placements)
+    return _like(a.to_local()[i], a, pl, tuple(a.shape[1:]))
+
+
+def _without_dim(ref, dim: int):
+    """(placements, shape) of the DTensor ``ref`` reduced over tensor dim
+    ``dim``; (None, None) for a plain tensor."""
+    if not isinstance(ref, DTensor):
+        return None, None
+    dim = dim % ref.ndim
+    pl = tuple(Replicate() if p.is_shard(dim) else
+               Shard(p.dim - 1) if p.is_shard() and p.dim > dim else p
+               for p in ref.placements)
+    return pl, tuple(ref.shape[:dim]) + tuple(ref.shape[dim + 1:])
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +169,9 @@ def lr_schedule(cfg: TrainConfig, total_steps: int = 10_000
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """The norm over every element of every leaf (of every shard)."""
+    leaves = [_reduce(torch.sum(torch.square(_local(x).float())), x)
+              for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -105,7 +184,7 @@ def clip_by_global_norm(grads, max_norm: float):
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale.to(g.dtype))
+        _local(g).mul_(scale.to(g.dtype))
     return grads, gn
 
 
@@ -120,21 +199,25 @@ def compress_grads(grads, residual, mode: Optional[str]):
         return grads, residual
 
     def one(g, r):
-        gf = g.float() + r
+        gf = _local(g).float() + _local(r)
         if mode == "bf16":
             q = gf.to(torch.bfloat16).float()
         elif mode == "int8":
-            scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+            # the scale of the whole tensor, over every shard
+            amax = _reduce(gf.abs().max(), g, op=dist.ReduceOp.MAX)
+            scale = torch.clamp(amax, min=1e-12) / 127.0
             q = torch.round(gf / scale).to(torch.int8).float() * scale
         else:
             raise ValueError(mode)
-        return q.to(g.dtype), gf - q
+        return _like(q.to(g.dtype), g), _like(gf - q, g)
 
     out = tree_map(one, grads, residual)
     return _pick(grads, out, 0), _pick(grads, out, 1)
 
 
 def _zeros(p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, DTensor):       # on the parameter's placements
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
@@ -158,16 +241,17 @@ def adamw_update(cfg: TrainConfig, params, grads, state, step, lr):
     c1 = 1 - b1 ** t
     c2 = 1 - b2 ** t
 
-    def upd(p, g, m, v):
+    def upd(p_, g, m, v):
         # the reference's arithmetic, each new tensor updated in place so
         # that a leaf holds two temporaries, not six
-        gf = g.float()
-        m = torch.mul(m, b1).add_(gf, alpha=1 - b1)
-        v = torch.mul(v, b2).addcmul_(gf, gf, value=1 - b2)
+        p, gf = _local(p_), _local(g).float()
+        m = torch.mul(_local(m), b1).add_(gf, alpha=1 - b1)
+        v = torch.mul(_local(v), b2).addcmul_(gf, gf, value=1 - b2)
         denom = torch.div(v, c2).sqrt_().add_(eps)
         step_ = torch.div(m, c1).div_(denom).add_(p.float(),
                                                   alpha=cfg.weight_decay)
-        return (p - step_.mul_(lr).to(p.dtype)).to(p.dtype), m, v
+        p = (p - step_.mul_(lr).to(p.dtype)).to(p.dtype)
+        return _like(p, p_), _like(m, p_), _like(v, p_)
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     return _pick(params, out, 0), {"m": _pick(params, out, 1),
@@ -194,15 +278,25 @@ def adafactor_init(params, period: int) -> Dict:
     """``period``: the model's ``pattern_period`` (how ``layers`` stack)."""
     device = tree_leaves(params)[0].device
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    def zeros(p, dim):
+        if not isinstance(p, DTensor):
+            shape = p.shape[:dim] + p.shape[dim + 1:] if dim is not None \
+                else p.shape
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        pl, shape = (_without_dim(p, dim) if dim is not None
+                     else (tuple(p.placements), tuple(p.shape)))
+        t = _local(p)
+        lshape = t.shape[:dim] + t.shape[dim + 1:] if dim is not None \
+            else t.shape
+        return _like(torch.zeros(lshape, dtype=torch.float32,
+                                 device=device), p, pl, shape)
 
     def one(p):
         if _factored(p):
-            return {"vr": zeros(p.shape[:-1]),
-                    "vc": zeros(p.shape[:-2] + p.shape[-1:])}
-        return {"v": zeros(p.shape)}
-    shapes = tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
+            return {"vr": zeros(p, p.ndim - 1), "vc": zeros(p, p.ndim - 2)}
+        return {"v": zeros(p, None)}
+    shapes = tree_map(lambda t: t if isinstance(t, DTensor) else
+                      torch.empty(t.shape, device="meta"), params)
     return {"v": tree_map(one, _stacked(shapes, period))}
 
 
@@ -216,25 +310,40 @@ def adafactor_update(cfg: TrainConfig, params, grads, state, step, lr):
     beta2 = 1.0 - t ** -0.8   # Adafactor's schedule
     eps = 1e-30
 
-    def upd(p, g, v):
-        gf = g.float()
+    def mean(x, ref, dim=None, pdim=None, keepdim=False):
+        """torch.mean over ``dim`` (all when None) of a local shard of
+        ``ref``'s layout, across the shards that split ``ref``'s tensor
+        dim ``pdim`` (default: ``dim``)."""
+        if not isinstance(ref, DTensor):
+            return torch.mean(x) if dim is None else \
+                torch.mean(x, dim=dim, keepdim=keepdim)
+        if dim is None:
+            return _reduce(torch.sum(x), ref) / ref.numel()
+        pdim = (dim if pdim is None else pdim) % ref.ndim
+        return _reduce(torch.sum(x, dim=dim, keepdim=keepdim), ref,
+                       (pdim,)) / ref.shape[pdim]
+
+    def upd(p_, g, v):
+        p, gf = _local(p_), _local(g).float()
         g2 = gf * gf + eps
-        if _factored(p):
-            vr = beta2 * v["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * v["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-            rmean = torch.mean(vr, dim=-1, keepdim=True)
+        if _factored(p_):
+            vr = beta2 * _local(v["vr"]) + (1 - beta2) * mean(g2, p_, -1)
+            vc = beta2 * _local(v["vc"]) + (1 - beta2) * mean(g2, p_, -2)
+            rmean = mean(vr, p_, -1, pdim=-2, keepdim=True)
             prec = (vr / torch.clamp(rmean, min=eps))[..., None] * \
                 vc.unsqueeze(-2)
             u = gf / torch.sqrt(torch.clamp(prec, min=eps))
-            nv = {"vr": vr, "vc": vc}
+            nv = {"vr": _like(vr, p_, *_without_dim(p_, -1)),
+                  "vc": _like(vc, p_, *_without_dim(p_, -2))}
         else:
-            nv = {"v": beta2 * v["v"] + (1 - beta2) * g2}
+            nv = {"v": beta2 * _local(v["v"]) + (1 - beta2) * g2}
             u = gf / torch.sqrt(torch.clamp(nv["v"], min=eps))
+            nv = {"v": _like(nv["v"], p_)}
         # update clipping (RMS <= 1)
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        rms = torch.sqrt(mean(u * u, p_) + eps)
         u = u / torch.clamp(rms, min=1.0)
         u = u + cfg.weight_decay * p.float()
-        return (p - lr * u.to(p.dtype)).to(p.dtype), nv
+        return _like((p - lr * u.to(p.dtype)).to(p.dtype), p_), nv
 
     out = tree_map(upd, params_s, grads_s, state["v"])
     return (_unstacked(_pick(params_s, out, 0)),
@@ -250,9 +359,10 @@ def sgd_init(params) -> Dict:
 
 
 def sgd_update(cfg: TrainConfig, params, grads, state, step, lr):
-    def upd(p, g, m):
-        m = cfg.beta1 * m + g.float()
-        return (p - lr * m.to(p.dtype)).to(p.dtype), m
+    def upd(p_, g, m):
+        p = _local(p_)
+        m = cfg.beta1 * _local(m) + _local(g).float()
+        return _like((p - lr * m.to(p.dtype)).to(p.dtype), p_), _like(m, p_)
     out = tree_map(upd, params, grads, state["m"])
     return _pick(params, out, 0), {"m": _pick(params, out, 1)}
 
@@ -295,6 +405,19 @@ def state_to_reference(opt: Dict, *, period: int) -> Dict:
             return map_leaves(to_numpy, v)
         return to_jax_params(v, period=period)
     return {k: one(v) for k, v in opt.items()}
+
+
+def place_state(cfg: TrainConfig, opt: Dict, params, *,
+                period: int) -> Dict:
+    """Whole optimizer state (``state_from_reference``'s) laid out as
+    ``init_opt_state`` lays it out for ``params``: on each moment's
+    placements where ``params`` are DTensors (each rank keeps its
+    shards), unchanged where they are plain tensors."""
+    if not isinstance(tree_leaves(params)[0], DTensor):
+        return opt
+    layout = init_opt_state(cfg, params, period=period)
+    return tree_map(lambda t, ref: place(t, ref.device_mesh, ref.placements)
+                    if isinstance(ref, DTensor) else t, opt, layout)
 
 
 def state_from_reference(cfg: TrainConfig, tree: Dict, *, device) -> Dict:

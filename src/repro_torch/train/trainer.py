@@ -1,5 +1,5 @@
 """Trainer: checkpoint/restart, straggler watchdog, failure recovery —
-the fault-tolerance layer, on one device.
+the fault-tolerance layer, on one device or over a mesh (``ctx``).
 
 Everything the step needs (params, opt state, data cursor) is
 reconstructable from (checkpoint, step index), because the data pipeline
@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs.base import ArchConfig, ShapeSpec
@@ -25,6 +26,7 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as M
 from repro_torch.models.convert import from_jax_params, to_jax_params
 from repro_torch.optim import optimizer as O
+from repro_torch.parallel.sharding import NO_MESH, ParallelCtx
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -62,6 +64,14 @@ class StepRecord:
     retried: int = 0
 
 
+@dataclass
+class RunRecord:
+    """What a Trainer's run leaves behind, without its tensors (it
+    crosses processes)."""
+    history: List[StepRecord]
+    straggler_events: List[int]
+
+
 def state_to_jax(acfg: ArchConfig, params, opt) -> tuple:
     """(params, opt) in the reference's layout, as numpy: the tree the
     trainer checkpoints, with the leaf names the reference's trainer
@@ -83,10 +93,11 @@ class Trainer:
                  tcfg: Optional[TrainerConfig] = None,
                  dcfg: Optional[DataConfig] = None,
                  fault_hook: Optional[Callable[[int], None]] = None,
-                 *, device="cuda"):
+                 *, device="cuda", ctx: ParallelCtx = NO_MESH):
         """fault_hook(step): test-injection point — raises to simulate a
         node failure at a given step. ``device``: where params, opt state
-        and batches live."""
+        and batches live. ``ctx``: the parallel context (a mesh of the
+        ranks that run this trainer alike, or ``NO_MESH``)."""
         self.acfg, self.shape = acfg, shape
         # None -> a fresh instance per Trainer. A dataclass-instance
         # default (``tcfg=TrainerConfig()``) is evaluated once at class
@@ -96,11 +107,12 @@ class Trainer:
         self.dcfg = DataConfig() if dcfg is None else dcfg
         self.fault_hook = fault_hook
         self.device = torch.device(device)
+        self.ctx = ctx
         # checkpoint `extra` metadata restored by resume_or_init; saved
         # back with every checkpoint so a resume->save cycle preserves
         # whatever the launcher recorded (run id, data cursor, ...)
         self.resume_extra: Dict[str, Any] = {}
-        self.step_fn = steps_lib.make_train_step(acfg)
+        self.step_fn = steps_lib.make_train_step(acfg, ctx)
         self.history: List[StepRecord] = []
         self.straggler_events: List[int] = []
         self._ema: Optional[float] = None
@@ -109,9 +121,11 @@ class Trainer:
     def init_state(self, seed: int = 0):
         """Fresh params drawn on the device from ``seed`` (a
         ``torch.Generator``: not the reference's ``jax.random`` draw),
-        fresh optimizer state, step 0."""
+        fresh optimizer state, step 0. Over a mesh each rank draws the
+        same whole parameters and keeps its shards."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = M.init_params(self.acfg, device=self.device, generator=gen)
+        params = M.distribute_params(self.ctx, self.acfg, params)
         opt = O.init_opt_state(self.acfg.train, params,
                                period=self.acfg.model.pattern_period)
         return params, opt, 0
@@ -137,6 +151,9 @@ class Trainer:
                 tree, extra = ckpt_lib.restore(d, last,
                                                self.restore_target())
                 params, opt = state_from_jax(self.acfg, tree, self.device)
+                params = M.distribute_params(self.ctx, self.acfg, params)
+                opt = O.place_state(self.acfg.train, opt, params,
+                                    period=self.acfg.model.pattern_period)
                 self.resume_extra = dict(extra or {})
                 log.info("resumed from step %d", last)
                 return params, opt, last
@@ -145,7 +162,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def _one_step(self, params, opt, step: int):
         batch = device_batch(host_batch(self.acfg, self.shape, step,
-                                        self.dcfg), self.device)
+                                        self.dcfg), self.device, self.ctx)
         # the hook simulates in-step behaviour (failure OR slowness), so it
         # must run inside the timed window or stragglers are invisible
         t0 = time.perf_counter()
@@ -153,8 +170,17 @@ class Trainer:
             self.fault_hook(step)
         params, opt, metrics = self.step_fn(params, opt, batch)
         loss = float(metrics["loss"])      # waits for the step's work
-        wall = time.perf_counter() - t0
+        wall = self._agreed(time.perf_counter() - t0)
         return params, opt, loss, wall
+
+    def _agreed(self, wall: float) -> float:
+        """The slowest rank's wall time (this one's without a mesh)."""
+        if self.ctx.mesh is None:
+            return wall
+        t = torch.tensor([wall], dtype=torch.float64,
+                         device=self.ctx.mesh.device_type)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t[0])
 
     def train(self, params=None, opt=None, start_step: Optional[int] = None,
               seed: int = 0):
@@ -221,3 +247,19 @@ class Trainer:
         if self.tcfg.ckpt_dir:
             self.save(step, params, opt)
         return params, opt
+
+
+def train_on_mesh(acfg: ArchConfig, shape: ShapeSpec, tcfg: TrainerConfig,
+                  dcfg: DataConfig, mesh_shape, device: str = "cpu",
+                  seed: int = 0) -> RunRecord:
+    """One rank's Trainer run over a (data, model) mesh of
+    ``mesh_shape`` on the process group already started (what each rank
+    of ``launch.mesh.spawn`` runs, or one process after
+    ``launch.mesh.init_single``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import make_ctx
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device=device)
+    tr = Trainer(acfg, shape, tcfg, dcfg, device=device,
+                 ctx=make_ctx(acfg, mesh))
+    tr.train(seed=seed)
+    return RunRecord(tr.history, tr.straggler_events)

@@ -77,3 +77,17 @@ def test_serve_batched_tiny_runs_on_cpu(arch, capsys):
     assert all(o.dtype == np.int32 and o.min() >= 0 and o.max() < vocab
                for o in outs)
     assert f"[{arch} on cpu] request 1: batch=4" in capsys.readouterr().out
+
+
+def test_train_ps_mode_tiny_runs_over_the_2x2_mesh(capsys):
+    """The PS-mode example trains over a 2 x 2 (data, model) mesh of four
+    spawned gloo processes, as the JAX example does over its (2, 2) host
+    mesh, then restarts from its checkpoint."""
+    tr, tr2 = _example("torch_train_ps_mode.py")(["--tiny", "--device",
+                                                   "cpu"])
+    out = capsys.readouterr().out
+    assert "PS(fsdp) mode over a 2x2 (data x model) mesh" in out
+    losses = [r.loss for r in tr.history]
+    assert [r.step for r in tr.history] == list(range(6))
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert [r.step for r in tr2.history] == [6, 7]

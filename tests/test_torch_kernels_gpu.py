@@ -507,3 +507,39 @@ def test_reduced_fp32_forward_on_the_card_matches_the_cpu(cuda, arch):
         out.append([t.cpu() for t in (hidden, aux, logits, step_logits)])
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dh", [128, 80])
+def test_flash_per_shard_entry_on_a_1x1_mesh_is_the_direct_call(cuda, dh):
+    """K3 through the per-shard entry (``flash_attention_sharded``, the
+    mesh path's) on a 1 x 1 NCCL mesh: one launch on wgmma, the same
+    bits as the direct call (bf16; dh 80 runs padded to 128)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.ops import \
+        flash_attention_sharded
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel.sharding import ParallelCtx
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    mesh_lib.init_single("cuda")
+    try:
+        ctx = ParallelCtx(mesh=mesh_lib.make_mesh((1, 1), ("data", "model"),
+                                                  device="cuda"))
+        rng = np.random.default_rng(dh)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+            for s in ((2, 256, 8, dh), (2, 256, 2, dh), (2, 256, 2, dh)))
+        direct = flash_attention(q, k, v, True)
+        on = [ctx.constrain(t, "batch", None, "heads", None)
+              for t in (q, k, v)]
+        before = dict(flash_attention.launches_by_path)
+        out = flash_attention_sharded(ctx, *on, True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_path["wgmma"] == \
+            before["wgmma"] + 1
+        assert tuple(out.placements) == tuple(on[0].placements)
+        assert torch.equal(out.to_local(), direct)
+    finally:
+        dist.destroy_process_group()

@@ -110,6 +110,34 @@ print("ok", len({_port_modules()!r}))
     assert r.stdout.startswith("ok")
 
 
+def test_mesh_modules_import_alone_and_start_no_process_group():
+    """``repro_torch.parallel`` and ``repro_torch.launch.mesh`` import
+    with jax and repro blocked, and importing them (then every port
+    module) starts no process group, as the reference's mesh module
+    touches no device state on import."""
+    code = f"""
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(SRC)!r})
+import torch.distributed as dist
+for name in ["repro_torch.parallel", "repro_torch.parallel.sharding",
+             "repro_torch.launch.mesh"] + {_port_modules()!r}:
+    importlib.import_module(name)
+    assert not dist.is_initialized(), name
+from repro_torch.parallel import NO_MESH, make_ctx
+from repro_torch.launch.mesh import make_mesh, spawn
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
 def test_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_)"
                      r"|from repro\b(?!_))", re.M)

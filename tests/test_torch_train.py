@@ -14,7 +14,6 @@ import dataclasses
 import pathlib
 import re
 import runpy
-import time
 
 import jax
 import jax.numpy as jnp
@@ -350,15 +349,29 @@ def test_failure_restarts_from_checkpoint(tmp_path):
     assert got == {r.step: r.loss for r in clean.history}
 
 
-def test_straggler_watchdog(tmp_path):
-    """Every step sleeps 50 ms inside the timed window, so the EMA (from
-    step 1) sits well above what a loaded CPU adds to a step; steps 3-5
-    sleep 600 ms, more than 3x it. Two slow steps in a row write a
+class _Clock:
+    """A ``time`` stand-in whose ``perf_counter`` only the fault hook
+    moves: the trainer's step times are then exactly what the hook says,
+    whatever the CPU's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+
+def test_straggler_watchdog(tmp_path, monkeypatch):
+    """Every step takes 50 ms inside the timed window on a fake clock
+    (the trainer's ``time``), so the EMA (from step 1) is 50 ms; steps
+    3-5 take 600 ms, more than 3x it. Two slow steps in a row write a
     preemptive checkpoint (step_5, after step 4)."""
     slow = {3, 4, 5}
+    clock = _Clock()
+    monkeypatch.setattr(trainer, "time", clock)
 
     def fault(step):
-        time.sleep(0.6 if step in slow else 0.05)
+        clock.now += 0.6 if step in slow else 0.05
 
     tr = _trainers("qwen3-8b", tmp_path, 7, fault_hook=fault,
                    straggler_patience=2)
@@ -501,11 +514,16 @@ def test_train_config_keeps_the_wkv_kernel_off():
 
 
 def test_train_cli_refuses_a_mesh_and_a_missing_card(monkeypatch, capsys):
+    """A mesh that does not fit the world (here one process) exits 2
+    naming both sizes, and leaves no process group behind; the mesh
+    itself runs in tests/test_torch_mesh.py."""
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
                         "--mesh", "2x2"])
     assert e.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs 4 ranks" in err and "has 1" in err
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--arch", "qwen3-8b", "--reduced"])
