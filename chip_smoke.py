@@ -93,7 +93,29 @@ Phases (any failure raises, and the script exits non-zero):
    per-shard entry; its step 0 against the no-mesh kernel step within
    the [train] bounds (bit-identical expected, and said), ms a step
    beside [train]'s; then Mixtral-8x7B cut to 1 layer with
-   ``expert_sharding="ep"`` for one step (the per-shard MoE body);
+   ``expert_sharding="ep"`` for one step (the per-shard MoE body); then
+   RWKV-6 1.6B at full width cut to 2 layers (seq 1024, batch 2, the
+   plain chunked scan) over the mesh for 2 steps, step 0 against the
+   no-mesh step within the [train] bounds (a ``wr`` gradient in place of
+   ``wq``), ms a step beside a no-mesh Trainer's, no K3 or K4 launch.
+   Earlier, after [serve]'s RWKV-6 and Jamba phases, the recurrent
+   mixers are served over the 1 x 1 mesh (``phase_mesh_serve``): RWKV-6
+   1.6B whole and Jamba's cut (positions 0-4, the config's fsdp), on the
+   serve CLI's weights, [serve]'s request-0 prompts, prefill then 31
+   greedy decode steps with no mesh and over the mesh: tokens equal to
+   [serve]'s and the no-mesh run's, last-position logits within the
+   end-to-end bound (RWKV-6's 8.5e-2, Qwen3-8B's 5e-2 for Jamba), 24 K4
+   launches a prefill through ``rwkv6_scan_shard`` (RWKV-6) and 1 wgmma
+   K3 launch (Jamba), ms a request and a decode step and the peak
+   beside the no-mesh run's;
+9c. the roofline (``[roofline]``): ``launch/roofline.py``'s counts, on
+   fake tensors with no mesh, of the Qwen3-8B prefill at [serve]'s
+   shape and of the [train] step, on the plain paths (the program the
+   counters see), beside the device ms measured on CUDA events for each
+   on the plain path and with K3 (the prefill timed on [serve]'s engine
+   after [cluster], the step after [train]'s); compute and memory
+   terms, the dominant one, the model's FLOPs, the share of the plain
+   program's time that its bound is, and K3's speed-up over plain;
 10. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
    p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
    default payload and with ``--arch qwen3-8b``, and fully_connected on
@@ -335,6 +357,14 @@ TRAIN_SMALL_ARCHS = (ARCH, MIXTRAL_ARCH, "jamba-1.5-large-398b")
 # with expert_sharding "ep" for one step, the per-shard MoE body and
 # K3's per-shard entry on the card
 MESH_STEPS, MESH_MIXTRAL_STEPS = 3, 1
+# The recurrent mixers over the 1 x 1 mesh (``[mesh]``): RWKV-6 1.6B
+# whole and Jamba's [serve] cut served ([serve]'s request-0 prompts,
+# prefill then greedy decode, with no mesh and over the mesh, the
+# config's fsdp: Jamba's MoE experts, 19 GB in bf16, gathered at use on
+# the one rank), then RWKV-6 trained at full width cut to 2 layers, seq
+# 1024, batch 2, through the plain chunked scan (K4 has no backward)
+RWKV_LAYERS, JAMBA_ARCH = 24, "jamba-1.5-large-398b"
+RWKV_MESH_LAYERS, RWKV_MESH_SEQ, RWKV_MESH_STEPS = 2, 1024, 3
 # device kernels by kind, for [profile] (first match wins): the port's own
 # kernels, cuBLAS / CUTLASS products, PyTorch's indexed gathers and
 # scatters (the collective transport's row permutations, embeddings),
@@ -1525,14 +1555,15 @@ def _wkv_decay_early(r, k, v, log_w, s0, u=None, *, chunk=64):
 
 @contextlib.contextmanager
 def wkv_patched(fn):
-    """The RWKV-6 time mix calls ``fn`` in place of ``rwkv6_scan``."""
+    """The RWKV-6 time mix calls ``fn`` in place of its scan
+    (``rwkv6_scan_shard``, which takes ``rwkv6_scan``'s arguments)."""
     from repro_torch.models import ssm
-    saved = ssm.rwkv6_scan
-    ssm.rwkv6_scan = fn
+    saved = ssm.rwkv6_scan_shard
+    ssm.rwkv6_scan_shard = fn
     try:
         yield
     finally:
-        ssm.rwkv6_scan = saved
+        ssm.rwkv6_scan_shard = saved
 
 
 def phase_e2e_rwkv(name: str) -> None:
@@ -1605,7 +1636,8 @@ def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
     just before and read just after: K3 must launch twice a layer a step
     (forward and remat's recompute), all on wgmma; then one more step's
     breakdown (``step_breakdown``). Returns (K3's launches on the main
-    path, the mean ms of steps 1 on)."""
+    path, the mean ms of steps 1 on, that step's ms on CUDA events with
+    K3 and plain)."""
     import dataclasses
 
     from repro_torch.data.pipeline import device_batch, host_batch
@@ -1748,28 +1780,34 @@ def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
                              f"{step_launches}, not {want} on {path} "
                              f"(forward and remat's recompute of each "
                              f"layer)")
-    step_breakdown(name, acfg, shape, trainer, params, opt, n_steps)
+    device_ms = step_breakdown(name, acfg, shape, trainer, params, opt,
+                               n_steps)
     del params, opt, trainer
     _free()
-    return launches, 1e3 * sum(steady) / len(steady)
+    return launches, 1e3 * sum(steady) / len(steady), device_ms
 
 
 def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
-               train_ms: float, **parallel) -> int:
+               train_ms, *, seq: int = TRAIN_SEQ, grad: str = "wq",
+               flash_per_layer: int = 2, **parallel) -> dict:
     """``arch`` at full width cut to ``layers`` layers, trained with
-    ``--ps-mode`` (and the ``parallel`` knobs) through a 1 x 1 NCCL mesh:
-    step 0's loss, gradient norm and layer ``TRAIN_WQ_LAYER``'s ``wq``
-    gradient (layer 0's when there is one layer) against the no-mesh
-    kernel step on the same params and batch, within the [train]
-    bounds, then ``n_steps`` Trainer steps with K3 counted per step (2 a
-    layer, all wgmma), ms a step beside [train]'s ``train_ms`` and the
-    peak. Returns K3's launches on the main path."""
+    ``--ps-mode`` (and the ``parallel`` knobs) at ``seq`` through a
+    1 x 1 NCCL mesh: step 0's loss, gradient norm and layer
+    ``TRAIN_WQ_LAYER``'s ``grad`` gradient (layer 0's when there is one
+    layer) against the no-mesh kernel step on the same params and batch,
+    within the [train] bounds, then ``n_steps`` Trainer steps with K3
+    counted per step (``flash_per_layer`` a layer, all wgmma) and K4 not
+    at all (it has no backward), ms a step beside ``train_ms`` (the
+    no-mesh step's; where None, a no-mesh Trainer's same steps, run
+    first) and the peak. Returns K3's and K4's launches on the main
+    path."""
     import dataclasses
 
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import device_batch, host_batch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     from repro_torch.launch.train import train_config
@@ -1792,7 +1830,7 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
         ctx = make_ctx(acfg, mesh)
         what = (f"{acfg.model.name} {layers} layers over a 1x1 mesh "
                 f"(fsdp, {ctx.expert_sharding if acfg.model.moe else 'dense'})")
-        shape = train_shape(TRAIN_SEQ, TRAIN_BATCH)
+        shape = train_shape(seq, TRAIN_BATCH)
         wq_layer = min(TRAIN_WQ_LAYER, layers - 1)
         trainer = Trainer(acfg, shape, TrainerConfig(total_steps=n_steps,
                                                      log_every=0),
@@ -1805,10 +1843,28 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
                 device_batch(host, "cuda", c))
             out = (float(metrics["ce"] + metrics["aux"]),
                    float(O.global_norm(grads)),
-                   full(grads["layers"][wq_layer]["mixer"]["wq"]).float())
+                   full(grads["layers"][wq_layer]["mixer"][grad]).float())
             del grads
             _free()
             return out
+
+        def no_mesh_steps():
+            one = Trainer(acfg, shape, TrainerConfig(total_steps=n_steps,
+                                                     log_every=0),
+                          device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            one.train(seed=0)
+            walls = [r.wall_s for r in one.history[1:]] or \
+                [r.wall_s for r in one.history]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del one
+            _free()
+            print(f"[mesh] {acfg.model.name} {layers} layers with no mesh: "
+                  f"{1e3 * sum(walls) / len(walls):.1f} ms a step, "
+                  f"max_memory_allocated {peak:.2f} GiB on {name}")
+            return 1e3 * sum(walls) / len(walls)
+        if train_ms is None:
+            train_ms = no_mesh_steps()
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = M.init_params(acfg, device="cuda", generator=gen)
@@ -1825,7 +1881,7 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
         print(f"[mesh] {what}, step 0 vs the no-mesh kernel step: loss "
               f"{meshed[0]:.6f} / {plain[0]:.6f} (rel {got[0]:.3g}), grad "
               f"norm {meshed[1]:.6g} / {plain[1]:.6g} (rel {got[1]:.3g}), "
-              f"layer {wq_layer} wq grad {got[2]:.3g}, bounds {bounds}; "
+              f"layer {wq_layer} {grad} grad {got[2]:.3g}, bounds {bounds}; "
               f"{'bit-identical' if same else 'NOT bit-identical'} on "
               f"{name}")
         if any(g > b for g, b in zip(got, bounds)):
@@ -1835,13 +1891,13 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
         per_step = []
         trainer.fault_hook = lambda step: per_step.append(
             dict(flash_attention.launches_by_path))
-        flash_attention.launches = 0
+        flash_attention.launches = rwkv6_scan.launches = 0
         flash_attention.launches_by_path = dict.fromkeys(
             flash_attention.launches_by_path, 0)
         torch.cuda.reset_peak_memory_stats()
         trainer.train(seed=0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        launches = flash_attention.launches
+        launches, wkv = flash_attention.launches, rwkv6_scan.launches
         per_step.append(dict(flash_attention.launches_by_path))
         step_launches = [{p: b[p] - a[p] for p in b if b[p] - a[p]}
                          for a, b in zip(per_step, per_step[1:])]
@@ -1857,48 +1913,258 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
                   else "")
         print(f"[mesh] {what}: {ms:.1f} ms a step{beside}, "
               f"max_memory_allocated {peak:.2f} GiB, flash launches "
-              f"{launches} on {name}")
-        want = 2 * layers
+              f"{launches}, WKV launches {wkv} on {name}")
+        want = flash_per_layer * layers
         if len(losses) != n_steps or not all(
                 torch.isfinite(torch.tensor(losses))) or any(
-                n != {"wgmma": want} for n in step_launches):
+                n != ({"wgmma": want} if want else {})
+                for n in step_launches) or wkv:
             raise AssertionError(f"{what}: losses {losses}, flash launches "
                                  f"per step {step_launches}, not {want} on "
-                                 f"wgmma")
+                                 f"wgmma; WKV launches {wkv}")
         del trainer
         _free()
-        return launches
+        return {"K3": launches, "K4": wkv}
     finally:
         dist.destroy_process_group()
 
 
+def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
+                     per_prefill: int, logits_tol: float,
+                     **parallel) -> dict:
+    """``arch`` served over a 1 x 1 NCCL mesh: the serve CLI's weights
+    (seed 0, at full width, cut to ``depth`` layers where given), with
+    the config's parallel knobs and ``parallel``; [serve]'s request-0
+    prompts prefilled, then NEW_TOKENS - 1 greedy decode steps, first
+    with no mesh and then over the mesh, on the same tensors (a 1 x 1
+    mesh's placements copy nothing), each after one untimed prefill and
+    decode step that warm it. The mesh run is the main path: its
+    kernel counts are set to 0 just before it and read just after, and
+    ``kernel`` must launch ``per_prefill`` times (and only once a layer
+    on wgmma for K3), the other kernel never. Its greedy tokens must
+    equal [serve]'s direct tokens (``served``) and the no-mesh run's,
+    its last-position prefill logits lie within ``logits_tol`` (max|diff|
+    / max|no mesh|). Prints ms a request, ms a decode step and the peak
+    beside the no-mesh run's. Returns K3's and K4's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import NO_MESH, full, make_ctx
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    _free()
+    mesh_lib.init_single("cuda")
+    try:
+        with cut_depth(arch, depth):
+            acfg, params = serve.init_model(arch, reduced=False,
+                                            device="cuda")
+        acfg = acfg.replace(parallel=dataclasses.replace(acfg.parallel,
+                                                         **parallel))
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cuda")
+        ctx = make_ctx(acfg, mesh)
+        what = (f"{acfg.model.name} {acfg.model.num_layers} layers over a "
+                f"1x1 mesh (fsdp {'on' if ctx.fsdp else 'off'})")
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, acfg.model.vocab_size, (BATCH, PROMPT_LEN), dtype=np.int32),
+            device="cuda")
+        max_seq = PROMPT_LEN + NEW_TOKENS + 8       # the serve CLI's
+        runs = {}
+        for label, c in (("no mesh", NO_MESH), ("mesh", ctx)):
+            p = M.distribute_params(c, acfg, params)
+            prefill = steps.make_prefill_step(acfg, max_seq, c)
+            decode = steps.make_decode_step(acfg, BATCH, c)
+            # warm: the first collectives start NCCL's communicators
+            decode(p, prefill(p, {"tokens": prompts})[0], prompts[:, :1])
+            if label == "mesh":
+                flash_attention.launches = rwkv6_scan.launches = 0
+                flash_attention.launches_by_path = dict.fromkeys(
+                    flash_attention.launches_by_path, 0)
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, logits = prefill(p, {"tokens": prompts})
+            last = full(logits)[:, -1].float()
+            toks = [last.argmax(-1).to(torch.int32)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(NEW_TOKENS - 1):
+                states, logits = decode(p, states, toks[-1][:, None])
+                toks.append(full(logits)[:, -1].argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            runs[label] = {
+                "tokens": torch.stack(toks, 1).cpu().numpy(), "last": last,
+                "request_ms": 1e3 * (t2 - t0), "prefill_ms": 1e3 * (t1 - t0),
+                "decode_ms": 1e3 * (t2 - t1) / (NEW_TOKENS - 1),
+                "peak": torch.cuda.max_memory_allocated() / 2**30}
+            if label == "mesh":
+                launches = {"K3": flash_attention.launches,
+                            "K4": rwkv6_scan.launches,
+                            "K3 by path": dict(
+                                flash_attention.launches_by_path)}
+            del p, states, logits
+        del params
+        _free()
+        one, on = runs["no mesh"], runs["mesh"]
+        for key, unit in (("request_ms", "ms a request"),
+                          ("prefill_ms", "ms a prefill"),
+                          ("decode_ms", "ms a decode step"),
+                          ("peak", "GiB peak")):
+            print(f"[mesh] {what}: {on[key]:.2f} {unit}, no mesh "
+                  f"{one[key]:.2f} ({100 * (on[key] / one[key] - 1):+.1f} "
+                  f"%) on {name}")
+        err = rel(on["last"], one["last"])
+        same = bool(torch.equal(on["last"], one["last"]))
+        print(f"[mesh] {what}: last-position prefill logits vs no mesh "
+              f"max|diff|/max|no mesh| {err:.3g} (bound {logits_tol}; "
+              f"{'bit-identical' if same else 'NOT bit-identical'}); "
+              f"launches {launches}; request 0 row 0: "
+              f"{on['tokens'][0][:8].tolist()}")
+        if not torch.isfinite(on["last"]).all() or err > logits_tol:
+            raise AssertionError(f"{what}: logits vs no mesh {err}")
+        direct = served[0]
+        if not ((on["tokens"] == one["tokens"]).all()
+                and (on["tokens"] == direct).all()):
+            raise AssertionError(f"{what}: greedy tokens differ from the "
+                                 f"no-mesh run or [serve]'s")
+        other = "K4" if kernel == "K3" else "K3"
+        if launches[kernel] != per_prefill or launches[other] or (
+                kernel == "K3"
+                and launches["K3 by path"]["wgmma"] != per_prefill):
+            raise AssertionError(f"{what}: launches {launches}, not "
+                                 f"{per_prefill} of {kernel} a prefill")
+        print(f"[mesh] {what}: greedy tokens equal the no-mesh run's and "
+              f"[serve]'s; {kernel} launches {launches[kernel]} = "
+              f"{per_prefill} x 1 prefill")
+        return {"K3": launches["K3"], "K4": launches["K4"]}
+    finally:
+        dist.destroy_process_group()
+
+
+def prefill_device_ms(name: str, engine) -> tuple:
+    """A Qwen3-8B prefill of [serve]'s shape on its direct engine's
+    weights, warm, on CUDA events, the mean of 3: with K3 (as served)
+    and on the plain path (the program ``[roofline]`` counts). Returns
+    (K3 ms, plain ms)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+    acfg = engine.acfg
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, acfg.model.vocab_size, (BATCH, PROMPT_LEN), dtype=np.int32),
+        device="cuda")
+    out = []
+    for flash in (True, False):
+        cfg = acfg.replace(train=dataclasses.replace(
+            acfg.train, use_flash_kernel=flash))
+        prefill = steps.make_prefill_step(cfg, PROMPT_LEN + NEW_TOKENS + 8)
+        out.append(cuda_ms(lambda: prefill(engine.params,
+                                           {"tokens": tokens}),
+                           iters=3, warmup=1))
+    print(f"[roofline] {acfg.model.name} prefill (batch {BATCH}, prompt "
+          f"{PROMPT_LEN}) on CUDA events: {out[0]:.2f} ms with K3, "
+          f"{out[1]:.2f} ms plain on {name}")
+    return tuple(out)
+
+
+def phase_roofline(name: str, prefill_ms: tuple, train_ms: tuple) -> None:
+    """The port's roofline (``launch/roofline.py``, counted on fake
+    tensors on the host: the plain paths, no mesh, no process group) of
+    the Qwen3-8B prefill at [serve]'s shape and of the train step at
+    [train]'s (4 layers, seq 4096, batch 2): compute and memory terms,
+    the dominant one and the model's FLOPs. The counted program is the
+    plain one (K3 is a ctypes launch that no counter sees; the plain
+    attention writes its fp32 scores), so the share of the bound is
+    taken of the plain program's device ms, measured on CUDA events in
+    this run (``prefill_ms`` / ``train_ms``: (K3 ms, plain ms)). The K3
+    program's ms stands beside it, a different program with no count of
+    its own: its ratio to the plain one is printed, not a share."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_config
+    from repro_torch.parallel.sharding import NO_MESH
+    serve_cfg = get_config(ARCH)     # served in bf16 weights, as the CLI
+    serve_cfg = serve_cfg.replace(train=dataclasses.replace(
+        serve_cfg.train, param_dtype=serve_cfg.train.compute_dtype))
+    train_cfg = train_config(ARCH, reduced=False, device="cuda")
+    train_cfg = train_cfg.replace(model=dataclasses.replace(
+        train_cfg.model, num_layers=TRAIN_LAYERS))
+    for label, acfg, shape, (k3_ms, ms) in (
+            ("prefill", serve_cfg, ShapeSpec("prefill", PROMPT_LEN, BATCH,
+                                             "prefill"), prefill_ms),
+            ("train step", train_cfg, train_shape(TRAIN_SEQ, TRAIN_BATCH),
+             train_ms)):
+        t0 = time.perf_counter()
+        rf = dryrun.roofline(NO_MESH, acfg, shape, "none")
+        bound_ms = 1e3 * max(rf.compute_s, rf.memory_s)
+        print(f"[roofline] {acfg.model.name} {acfg.model.num_layers} layers "
+              f"{label} (batch {shape.global_batch}, seq {shape.seq_len}), "
+              f"the plain program: {rf.flops_per_device:.4g} FLOP, "
+              f"{rf.bytes_per_device:.4g} bytes (eager, unfused), compute_s "
+              f"{rf.compute_s:.4g}, memory_s {rf.memory_s:.4g}, dominant "
+              f"{rf.dominant}, model_flops {rf.model_flops:.4g}; measured "
+              f"{ms:.2f} ms plain on {name}: the bound {bound_ms:.2f} ms is "
+              f"{100 * bound_ms / ms:.1f} % of it, compute alone "
+              f"{100 * 1e3 * rf.compute_s / ms:.1f} %; with K3 {k3_ms:.2f} "
+              f"ms, {ms / k3_ms:.3f}x faster than plain (counted in "
+              f"{time.perf_counter() - t0:.1f} s)")
+        if not (rf.flops_per_device > 0 and rf.bytes_per_device > 0
+                and rf.model_flops > 0 and ms > 0 and k3_ms > 0):
+            raise AssertionError(f"[roofline] {label}: {rf.to_dict()}")
+
+
 def step_breakdown(name: str, acfg, shape, trainer, params, opt,
-                   step: int) -> None:
+                   step: int) -> tuple:
     """One more step outside the counted run (data of ``step``): its two
-    halves on CUDA events, then the whole step under the profiler."""
+    halves on CUDA events, the same step on the plain path (K3 off), then
+    the whole step under the profiler. Returns the step's ms on the
+    events: (as configured, plain)."""
+    import dataclasses
+
     from repro_torch.data.pipeline import device_batch, host_batch
     from repro_torch.launch import steps
     from repro_torch.optim import optimizer as O
     what = f"{acfg.model.name} {acfg.model.num_layers} layers"
     batch = device_batch(host_batch(acfg, shape, step, trainer.dcfg), "cuda")
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    events[0].record()
-    metrics, grads = steps.loss_and_grads(steps.make_loss_fn(acfg), params,
-                                          batch)
-    events[1].record()
-    with torch.no_grad():
-        updated = O.apply_updates(acfg.train, params, grads, opt)
-    events[2].record()
-    torch.cuda.synchronize()
-    print(f"[train] {what}, one step's halves on CUDA events: loss and "
-          f"gradients {events[0].elapsed_time(events[1]):.1f} ms (ce "
-          f"{float(metrics['ce']):.6f}, aux {float(metrics['aux']):.6g}), "
-          f"{acfg.train.optimizer} update "
-          f"{events[1].elapsed_time(events[2]):.1f} ms on {name}")
-    del grads, updated
-    _free()
+    total = []
+    for flash in (acfg.train.use_flash_kernel, False):
+        cfg = acfg.replace(train=dataclasses.replace(
+            acfg.train, use_flash_kernel=flash))
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        metrics, grads = steps.loss_and_grads(steps.make_loss_fn(cfg),
+                                              params, batch)
+        events[1].record()
+        with torch.no_grad():
+            updated = O.apply_updates(cfg.train, params, grads, opt)
+        events[2].record()
+        torch.cuda.synchronize()
+        total.append(events[0].elapsed_time(events[2]))
+        print(f"[train] {what}, one step's halves on CUDA events"
+              f"{'' if flash else ', plain'}: loss and gradients "
+              f"{events[0].elapsed_time(events[1]):.1f} ms (ce "
+              f"{float(metrics['ce']):.6f}, aux {float(metrics['aux']):.6g}"
+              f"), {acfg.train.optimizer} update "
+              f"{events[1].elapsed_time(events[2]):.1f} ms on {name}")
+        del grads, updated
+        _free()
     profiled(name, f"{what} one train step",
              lambda: trainer.step_fn(params, opt, batch)[2]["loss"], top_n=6)
+    return tuple(total)
 
 
 def phase_train_small(name: str) -> None:
@@ -2039,34 +2305,56 @@ def main() -> int:
     served = phase_serve(name, SERVE_ARGS, flash_attention, 36)
     by_path = {"serve": served["launches"],
                "cluster": phase_cluster(name, served)}
+    prefill_ms = prefill_device_ms(name, served["engine"])
     del served
     _free()
     phase_e2e(name)
-    wkv["launches"] = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan,
-                                  24)["launches"]
+    served = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan, 24)
+    wkv_by_path = {"serve": served["launches"]}
+    rwkv_tokens = served["direct"]
+    del served
     phase_e2e_rwkv(name)
+    on_mesh = phase_mesh_serve(name, RWKV_ARCH, None, rwkv_tokens, "K4",
+                               RWKV_LAYERS, RWKV_E2E_REL_TOL)
+    by_path["serve_mesh_rwkv"] = on_mesh["K3"]
+    wkv_by_path["serve_mesh_rwkv"] = on_mesh["K4"]
     _free()
     for arch, depth, attn_layers in MOE_SERVE:
-        by_path[f"serve_{arch.split('-')[0]}"] = phase_serve(
-            name, ["--arch", arch] + SERVE_ARGS[2:], flash_attention,
-            attn_layers, depth)["launches"]
+        served = phase_serve(name, ["--arch", arch] + SERVE_ARGS[2:],
+                             flash_attention, attn_layers, depth)
+        by_path[f"serve_{arch.split('-')[0]}"] = served["launches"]
+        if arch == JAMBA_ARCH:
+            jamba = (depth, attn_layers, served["direct"])
+        del served
         _free()
-    by_path["train"], train_ms = phase_train(
+    on_mesh = phase_mesh_serve(name, JAMBA_ARCH, jamba[0], jamba[2], "K3",
+                               jamba[1], E2E_REL_TOL)
+    by_path["serve_mesh_jamba"] = on_mesh["K3"]
+    wkv_by_path["serve_mesh_jamba"] = on_mesh["K4"]
+    by_path["train"], train_ms, train_device_ms = phase_train(
         name, ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS,
         (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
-    by_path["train_hubert"], _ = phase_train(
+    by_path["train_hubert"], _, _ = phase_train(
         name, HUBERT_ARCH, None, 1, HUBERT_STEPS, HUBERT_BOUNDS,
         HUBERT_CONTROL_BREAKS)
-    by_path["train_mixtral"], mixtral_ms = phase_train(
+    by_path["train_mixtral"], mixtral_ms, _ = phase_train(
         name, MIXTRAL_ARCH, MIXTRAL_LAYERS, TRAIN_BATCH, MIXTRAL_STEPS,
         MIXTRAL_BOUNDS, wq_layer=0)
     by_path["train_mesh"] = phase_mesh(name, ARCH, TRAIN_LAYERS, MESH_STEPS,
-                                       train_ms)
+                                       train_ms)["K3"]
     by_path["train_mesh_mixtral"] = phase_mesh(
         name, MIXTRAL_ARCH, MIXTRAL_LAYERS, MESH_MIXTRAL_STEPS, mixtral_ms,
-        expert_sharding="ep")
+        expert_sharding="ep")["K3"]
+    on_mesh = phase_mesh(name, RWKV_ARCH, RWKV_MESH_LAYERS, RWKV_MESH_STEPS,
+                         None, seq=RWKV_MESH_SEQ, grad="wr",
+                         flash_per_layer=0)
+    by_path["train_mesh_rwkv"] = on_mesh["K3"]
+    wkv_by_path["train_mesh_rwkv"] = on_mesh["K4"]
+    phase_roofline(name, prefill_ms, train_device_ms)
     kernel["launches_by_main_path"] = by_path
     kernel["launches"] = sum(by_path.values())
+    wkv["launches_by_main_path"] = wkv_by_path
+    wkv["launches"] = sum(wkv_by_path.values())
     phase_train_small(name)
     launches = phase_suite(name)
     swept = phase_sweep(name)

@@ -162,5 +162,25 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, sT
 
 
+def rwkv6_scan_shard(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_w: torch.Tensor, s0: torch.Tensor,
+                     u: Optional[torch.Tensor] = None, *, chunk: int = 64
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rwkv6_scan`` on one shard's heads (what a per-shard body calls):
+    r/k/v/log_w (B, S, H_local, hs), s0 (B, H_local, hs, hs) and ``u``
+    (H_local, hs) hold the same heads. Each head's scan is independent
+    of the others', so a shard scans its own heads alone (without a
+    mesh, one shard holds every head). On the card it launches K4
+    (counted in ``rwkv6_scan.launches``); on the CPU the plain
+    version."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan_shard: r {tuple(r.shape)} is not "
+                         f"(B, S, H_local, hs)")
+    if u is not None and tuple(u.shape) != tuple(r.shape[2:]):
+        raise ValueError(f"rwkv6_scan_shard: u {tuple(u.shape)} does not "
+                         f"hold the shard's heads {tuple(r.shape[2:])}")
+    return rwkv6_scan(r, k, v, log_w, s0, u, chunk=chunk)
+
+
 #: kernel launches since the last reset (CPU calls launch nothing)
 rwkv6_scan.launches = 0

@@ -7,7 +7,11 @@ process-group state.
 (``XLA_FLAGS=--xla_force_host_platform_device_count``): it runs a
 function on ``n`` CPU processes joined under gloo, so a 2 x 2 mesh runs
 on a machine with no accelerator. One H100 runs a 1 x 1 mesh through
-``init_single`` (NCCL, world size 1, no ``torchrun``).
+``init_single`` (NCCL, world size 1, no ``torchrun``). ``init_fake``
+lets one process stand for every rank of the production meshes (256 or
+512) for a dry run: a process group on the ``fake`` backend, whose
+collectives return at once and move nothing. A process runs one kind of
+group: one that started NCCL or gloo cannot also start a fake one.
 """
 from __future__ import annotations
 
@@ -42,19 +46,47 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
     return init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device: str = "cuda") -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda",
+                         fake: bool = False) -> DeviceMesh:
     """Single pod: (16,16)=(data,model) = 256 ranks. Multi-pod:
-    (2,16,16)=(pod,data,model) = 512 ranks."""
+    (2,16,16)=(pod,data,model) = 512 ranks. With ``fake`` this process
+    stands for all of them (``init_fake``; a CPU mesh, for dry runs)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        init_fake(512 if multi_pod else 256)
+        device = "cpu"
     return make_mesh(shape, axes, device=device)
 
 
+def init_fake(world_size: int) -> None:
+    """A process group of ``world_size`` ranks on the ``fake`` backend in
+    this one process (rank 0): every collective returns at once without
+    moving data, so with fake tensors a step of any mesh runs shapes
+    only. Kept when one of that size is up, replaced when a fake group
+    of another size is; a group of another backend raises."""
+    if dist.is_initialized():
+        if dist.get_backend() == "fake":
+            if _world() == world_size:
+                return
+            dist.destroy_process_group()
+        else:
+            raise RuntimeError(
+                f"init_fake: this process already runs a "
+                f"{dist.get_backend()} group of {_world()} ranks; a fake "
+                f"group of {world_size} needs a process of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 def make_test_mesh(data: int = 2, model: int = 2,
-                   pod: Optional[int] = None, *,
-                   device: str = "cpu") -> DeviceMesh:
-    """Small mesh over however many ranks ``spawn`` started."""
+                   pod: Optional[int] = None, *, device: str = "cpu",
+                   fake: bool = False) -> DeviceMesh:
+    """Small mesh over however many ranks ``spawn`` started (with
+    ``fake``, over a fake group of its size in this process)."""
+    if fake:
+        init_fake(data * model * (pod or 1))
     if pod:
         return make_mesh((pod, data, model), ("pod", "data", "model"),
                          device=device)

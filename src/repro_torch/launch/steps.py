@@ -73,10 +73,15 @@ def loss_and_grads(loss, params: Params, batch: Dict[str, torch.Tensor]
     leaves = [p.detach().requires_grad_() for p in O.tree_leaves(params)]
     it = iter(leaves)
     total, metrics = loss(O.tree_map(lambda _: next(it), params), batch)
-    grads = [g if not hasattr(p, "placements")
+    # a parameter the loss does not read (the token embedding of a model
+    # fed frontend embeds, with an untied head) has a zero gradient, as
+    # in the reference's jax.grad
+    raw = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None
+             else g if not hasattr(p, "placements")
              or tuple(g.placements) == tuple(p.placements)
              else g.redistribute(p.device_mesh, p.placements)
-             for p, g in zip(leaves, torch.autograd.grad(total, leaves))]
+             for p, g in zip(leaves, raw)]
     it = iter(grads)
     return metrics, O.tree_map(lambda _: next(it), params)
 
@@ -85,7 +90,6 @@ def make_train_step(acfg: ArchConfig, ctx: ParallelCtx = NO_MESH):
     """(params, opt_state, batch) -> (new_params, new_opt, metrics):
     loss, backward, then ``apply_updates`` under ``no_grad``. metrics:
     ``ce``, ``aux``, ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
-    M.check_mesh_support(acfg, ctx)
     loss = make_loss_fn(acfg, ctx)
 
     def step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
@@ -102,7 +106,6 @@ def make_train_step(acfg: ArchConfig, ctx: ParallelCtx = NO_MESH):
 def make_prefill_step(acfg: ArchConfig, max_seq: Optional[int] = None,
                       ctx: ParallelCtx = NO_MESH):
     """(params, batch) -> (states, logits at the last position only)."""
-    M.check_mesh_support(acfg, ctx)
 
     @torch.no_grad()
     def prefill(params: Params, batch: Dict[str, torch.Tensor]):
@@ -119,7 +122,6 @@ def make_decode_step(acfg: ArchConfig, batch: int,
                      ctx: ParallelCtx = NO_MESH):
     """(params, states, tokens (B, 1), embeds) -> (new_states, logits).
     The states' KV caches are written in place."""
-    M.check_mesh_support(acfg, ctx)
 
     @torch.no_grad()
     def decode(params: Params, states, tokens, embeds=None):

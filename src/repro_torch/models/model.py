@@ -36,9 +36,10 @@ weights are gathered at use (the parameter-server pull; the gather's
 backward reduce-scatters the gradients, the push), attention and the
 FFN split their heads and ``d_ff`` over ``model`` (a row-parallel
 output is summed by the redistribute after it), the embedding and the
-loss split the vocab where it is sharded. Only attention layers run
-under a mesh so far: ``check_mesh_support`` refuses the ``rwkv`` and
-``mamba`` mixers.
+loss split the vocab where it is sharded. The recurrent mixers split
+their heads over ``model`` the same way: each rank scans its own heads
+(the WKV scan through K4's per-shard entry, the SSD in PyTorch), with
+the per-head tensors the reference replicates sliced to those heads.
 """
 from __future__ import annotations
 
@@ -100,20 +101,6 @@ def _zip_logical(fn, tree, axes):
     if isinstance(tree, list):
         return [_zip_logical(fn, v, a) for v, a in zip(tree, axes)]
     return fn(tree, axes)
-
-
-def check_mesh_support(acfg: ArchConfig, ctx: ParallelCtx) -> None:
-    """Raise ``NotImplementedError`` for a layer kind that does not run
-    over a mesh yet: the ``rwkv`` and ``mamba`` mixers (ROADMAP.md,
-    Queue 1 item 15b)."""
-    if ctx.mesh is None:
-        return
-    kinds = sorted(set(acfg.model.layer_pattern) - {"attn"})
-    if kinds:
-        raise NotImplementedError(
-            f"{acfg.model.name}: the {'/'.join(kinds)} mixer does not run "
-            f"over a device mesh yet (ROADMAP.md, Queue 1 item 15b); "
-            f"train it without --mesh")
 
 
 # =========================================================================
@@ -276,16 +263,16 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
     h = _norm(ctx, cfg, p["norm1"], x)
     if kind == "rwkv":
         h, new_state = _rwkv_time_mix(cfg, p, h, state, mode,
-                                      use_rwkv_kernel)
+                                      use_rwkv_kernel, ctx)
     elif kind == "mamba":
-        h, new_state = _mamba_mix(cfg, p, h, state, mode)
+        h, new_state = _mamba_mix(cfg, p, h, state, mode, ctx)
     else:
         h, new_state = _attention(cfg, li, p, h, state, mode, positions,
                                   max_seq, use_flash, ctx)
     x = _constrain_act(ctx, x + h.to(x.dtype))
     h2 = _norm(ctx, cfg, p["norm2"], x)
     if kind == "rwkv":   # the channel mix in place of the FFN
-        h2, cm_new = ssm_lib.rwkv6_channel_mix(p["mixer"], h2, state)
+        h2, cm_new = _rwkv_channel_mix(ctx, p["mixer"], h2, state)
         if new_state is not None:
             new_state["shift_cm"] = cm_new
     elif cfg.moe_at(pos):
@@ -406,10 +393,14 @@ def _cache_axes(ctx: ParallelCtx, batch: int) -> LP:
 
 
 def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                   state: Optional[Params], mode: str, use_kernel: bool
+                   state: Optional[Params], mode: str, use_kernel: bool,
+                   ctx: ParallelCtx = NO_MESH
                    ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Prefill / train: chunked (K4 with ``use_kernel``); decode: the
     exact one-token recurrence."""
+    if ctx.mesh is not None:
+        return _rwkv_time_mix_sharded(ctx, cfg, p, h, state, mode,
+                                      use_kernel)
     mixer_state = state["mixer"] if state is not None else None
     if mode == "decode":
         h, s = ssm_lib.rwkv6_time_mix_step(cfg, cfg.ssm, p["mixer"], h,
@@ -421,10 +412,13 @@ def _rwkv_time_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 
 def _mamba_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
-               state: Optional[Params], mode: str
+               state: Optional[Params], mode: str,
+               ctx: ParallelCtx = NO_MESH
                ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Prefill / train: the chunked SSD; decode: the exact one-token
     recurrence."""
+    if ctx.mesh is not None:
+        return _mamba_mix_sharded(ctx, cfg, p, h, state, mode)
     mixer_state = state["mixer"] if state is not None else None
     if mode == "decode":
         h, s = ssm_lib.mamba_step(cfg, cfg.ssm, p["mixer"], h, mixer_state)
@@ -432,6 +426,164 @@ def _mamba_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
         h, s = ssm_lib.mamba_forward(cfg, cfg.ssm, p["mixer"], h,
                                      mixer_state)
     return h, ({"mixer": s} if mode != "train" else None)
+
+
+# ---------------- the recurrent mixers over a mesh ------------------------
+
+#: the time-mix weights of an ``rwkv`` layer (the rest is the channel mix)
+_RWKV_TM = ("mu_w", "mu_r", "mu_k", "mu_v", "mu_g", "w0", "w_lora_a",
+            "w_lora_b", "u", "wr", "wk", "wv", "wg", "wo", "ln_x")
+_RWKV_CM = ("mu_k_cm", "mu_r_cm", "wk_cm", "wv_cm", "wr_cm")
+
+
+def _local_heads(ctx: ParallelCtx, n_heads: int):
+    """(logical axis of the head dims, this rank's heads, its first head):
+    the heads split over ``model`` where they divide, else whole on every
+    rank."""
+    m = ctx.n_model_shards
+    if n_heads % m:
+        return None, n_heads, 0
+    n = n_heads // m
+    return "heads", n, ctx.coordinate(ctx.model_axis) * n
+
+
+def _state_placements(ctx: ParallelCtx, x, head_dim: Optional[int] = None,
+                      heads: Optional[str] = None) -> tuple:
+    """A state tensor's layout: its dim 0 on the activations' batch
+    layout, ``head_dim`` over ``model`` where the heads split."""
+    pl = [sh.Shard(0) if p.is_shard(0) else sh.Replicate()
+          for p in x.placements]
+    if heads is not None and head_dim is not None:
+        pl[ctx.mesh.mesh_dim_names.index(ctx.model_axis)] = \
+            sh.Shard(head_dim)
+    return tuple(pl)
+
+
+def _recurrent_sharded(ctx: ParallelCtx, h, w: dict, state: Optional[dict],
+                       state_pl: dict, heads: Optional[str], body):
+    """Run ``body(x, weights, state)`` per shard (the weights' dict on
+    each rank's local tensors; ``state`` None or a dict) and wrap its
+    (partial output, new state) back: the output summed over ``model``
+    where the heads split, each state tensor on ``state_pl``."""
+    wk, sk = sorted(w), sorted(state_pl)
+    mx = ctx.model_axis
+    st = [] if state is None else [
+        sh.to_placements(state[k], ctx.mesh, state_pl[k]) for k in sk]
+
+    def run(xl, *rest):
+        wl = dict(zip(wk, rest[:len(wk)]))
+        sl = dict(zip(sk, rest[len(wk):])) if state is not None else None
+        y, ns = body(xl, wl, sl)
+        return (y, *(ns[k] for k in sk))
+    y_pl = sh.summed_over(ctx, h.placements, (mx,) if heads else ())
+    outs = sh.shard_map(ctx, run, (h, *(w[k] for k in wk), *st),
+                        (y_pl, *(state_pl[k] for k in sk)),
+                        split=sh.batch_split(ctx, h) + ((mx,) if heads
+                                                        else ()))
+    return (outs[0].redistribute(ctx.mesh, h.placements),
+            dict(zip(sk, outs[1:])))
+
+
+def _rwkv_time_mix_sharded(ctx: ParallelCtx, cfg: ModelConfig, p: Params,
+                           h, state, mode: str, use_kernel: bool):
+    """The time mix per shard: each rank projects r, k, v, g onto its
+    heads (the columns of ``wr`` .. ``wg``), slices the per-head tensors
+    the reference replicates (``w0``, ``w_lora_b``, ``u``, ``ln_x``) to
+    them, scans them (K4 through
+    ``rwkv6_scan_shard`` with ``use_kernel``) and multiplies by its rows
+    of ``wo``: a partial sum over ``model``. The per-head GroupNorm
+    needs no collective."""
+    ssm = cfg.ssm
+    hs = ssm.head_size
+    heads, n, h0 = _local_heads(ctx, cfg.d_model // hs)
+    layout = {"wr": (None, heads), "wk": (None, heads), "wv": (None, heads),
+              "wg": (None, heads), "wo": (heads, None)}
+    pm = p["mixer"]
+    w = {k: ctx.constrain(pm[k], *layout.get(k, (None,) * pm[k].ndim))
+         for k in _RWKV_TM}
+    c0, c1 = h0 * hs, (h0 + n) * hs
+    state_pl = {"S": _state_placements(ctx, h, 1, heads),
+                "shift_tm": _state_placements(ctx, h)}
+
+    def body(x, wl, st):
+        wl = dict(wl, w0=wl["w0"][h0:h0 + n], u=wl["u"][h0:h0 + n],
+                  w_lora_b=wl["w_lora_b"][:, c0:c1], ln_x=wl["ln_x"][c0:c1])
+        if mode == "decode":
+            return ssm_lib.rwkv6_time_mix_step(cfg, ssm, wl, x, st)
+        return ssm_lib.rwkv6_time_mix(cfg, ssm, wl, x, st,
+                                      use_kernel=use_kernel)
+    mixer = state["mixer"] if state is not None else None
+    y, ns = _recurrent_sharded(ctx, h, w, mixer, state_pl, heads, body)
+    return y, ({"mixer": ns} if mode != "train" else None)
+
+
+def _mamba_mix_sharded(ctx: ParallelCtx, cfg: ModelConfig, p: Params, h,
+                       state, mode: str):
+    """The Mamba mixer per shard: each rank holds its heads' columns of
+    ``d_inner`` (``z_proj``, ``x_proj``, the conv, ``norm``) and slices
+    the per-head tensors the reference replicates (``dt_proj``'s
+    columns, ``a_log``, ``d_skip``, ``dt_bias``); B and C (``bc_proj``,
+    the ``bc`` conv) are whole on every rank. The gated RMSNorm's mean
+    over the whole ``d_inner`` sums the shards' squares over ``model``;
+    ``out_proj``'s rows give a partial sum."""
+    ssm = cfg.ssm
+    _, H, _ = ssm_lib.mamba_dims(cfg, ssm)
+    heads, n, h0 = _local_heads(ctx, H)
+    layout = {"z_proj": (None, heads), "x_proj": (None, heads),
+              "conv_w": (None, heads), "conv_b": (heads,),
+              "norm": (heads,), "out_proj": (heads, None)}
+    pm = p["mixer"]
+    w = {k: ctx.constrain(v, *layout.get(k, (None,) * v.ndim))
+         for k, v in pm.items()}
+    group = ctx.group(ctx.model_axis) if heads else None
+    state_pl = {"h": _state_placements(ctx, h, 1, heads),
+                "conv": _state_placements(ctx, h, 2, heads),
+                "conv_bc": _state_placements(ctx, h)}
+
+    def body(x, wl, st):
+        wl = dict(wl, dt_proj=wl["dt_proj"][:, h0:h0 + n],
+                  a_log=wl["a_log"][h0:h0 + n],
+                  d_skip=wl["d_skip"][h0:h0 + n],
+                  dt_bias=wl["dt_bias"][h0:h0 + n])
+        if mode == "decode":
+            return ssm_lib.mamba_step(cfg, ssm, wl, x, st, norm_group=group)
+        return ssm_lib.mamba_forward(cfg, ssm, wl, x, st, norm_group=group)
+    mixer = state["mixer"] if state is not None else None
+    y, ns = _recurrent_sharded(ctx, h, w, mixer, state_pl, heads, body)
+    return y, ({"mixer": ns} if mode != "train" else None)
+
+
+def _rwkv_channel_mix(ctx: ParallelCtx, p: Params, x,
+                      state: Optional[Params]):
+    """``rwkv6_channel_mix``; under a mesh per shard: ``wk_cm``'s
+    columns and ``wv_cm``'s rows of each rank's ``d_ff`` slice give a
+    partial sum of the value, ``wr_cm``'s columns (laid out on
+    ``heads``) a slice of the receptance. The partial sum is reduced
+    (scattered onto the receptance's columns) before the product, then
+    the product is gathered whole."""
+    if ctx.mesh is None:
+        return ssm_lib.rwkv6_channel_mix(p, x, state)
+    mx = ctx.model_axis
+    mi = ctx.mesh.mesh_dim_names.index(mx)
+    layout = {"wk_cm": (None, "d_ff"), "wv_cm": ("d_ff", None),
+              "wr_cm": (None, "heads")}
+    w = [ctx.constrain(p[k], *layout.get(k, (None,))) for k in _RWKV_CM]
+    shift_pl = _state_placements(ctx, x)
+    prev = None if state is None else sh.to_placements(
+        state["shift_cm"], ctx.mesh, shift_pl)
+
+    def body(xl, *rest):
+        return ssm_lib.channel_mix_factors(
+            dict(zip(_RWKV_CM, rest[:len(_RWKV_CM)])), xl,
+            rest[len(_RWKV_CM)] if prev is not None else None)
+    cols = list(x.placements)
+    cols[mi] = sh.Shard(2)
+    r, v, last = sh.shard_map(
+        ctx, body, (x, *w, *([prev] if prev is not None else [])),
+        (tuple(cols), sh.summed_over(ctx, x.placements, (mx,)), shift_pl),
+        split=sh.batch_split(ctx, x) + (mx,))
+    out = r * v.redistribute(ctx.mesh, tuple(cols))
+    return out.redistribute(ctx.mesh, x.placements), last
 
 
 #: the products ``dots_saveable`` keeps (matmuls and einsums reach
@@ -544,7 +696,6 @@ def forward(acfg: ArchConfig, params: Params, *,
     hidden states come back a DTensor and aux a plain 0-d tensor.
     """
     cfg = acfg.model
-    check_mesh_support(acfg, ctx)
     compute_dtype = dtype_of(acfg.train.compute_dtype)
     if compute_dtype != torch.float32:
         params = cast_params_for_compute(ctx, acfg, params, compute_dtype)
@@ -686,7 +837,6 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
     states (fp32, as the reference makes them). Under a mesh, DTensors
     laid out by ``state_logical_axes``."""
     cfg = acfg.model
-    check_mesh_support(acfg, ctx)
     cache_dtype = dtype_of(acfg.train.compute_dtype)
 
     def one_layer(li: int) -> Params:
@@ -709,10 +859,15 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
     def put(a, lp):
         return a if isinstance(a, int) else \
             sh.place(a, ctx.mesh, ctx.placements(*lp))
+
+    def put_tree(st, ax):
+        if isinstance(st, KVCache):
+            return KVCache(*(put(a, lp) for a, lp in zip(st, ax)))
+        if isinstance(st, dict):
+            return {k: put_tree(v, ax[k]) for k, v in st.items()}
+        return put(st, ax)
     axes = state_logical_axes(acfg, batch, ctx)
-    return [{"mixer": KVCache(*(put(a, lp) for a, lp in
-                                zip(st["mixer"], ax["mixer"])))}
-            for st, ax in zip(states, axes)]
+    return [put_tree(st, ax) for st, ax in zip(states, axes)]
 
 
 def state_logical_axes(acfg: ArchConfig, batch: int,

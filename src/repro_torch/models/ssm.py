@@ -17,6 +17,14 @@ lerps and projections in fp32.
 Shapes: x (B, S, d). State: {"S": (B, H, K, V) fp32, "shift_tm": (B, d),
 "shift_cm": (B, d)}.
 
+Every mixer takes its head count from its weights, not from ``d``, so
+that a per-shard body over a mesh (``models/model.py``) can hand it one
+rank's heads: the projections' columns, the per-head tensors sliced to
+those heads, and x whole; RWKV's scan goes through K4's per-shard
+entry, whose one shard holds every head without a mesh. The
+output projection then yields that rank's partial sum, and the states
+hold its heads.
+
 Mamba prefill runs the chunked SSD (chunk 64) in plain PyTorch, as the
 reference runs it in einsums outside any Pallas kernel; decode is the
 exact one-token recurrence. State: {"h": (B, H, 64, N) fp32, "conv":
@@ -32,8 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_shard
 from repro_torch.models.layers import _mm, dense_init, truncated_normal
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 
@@ -161,7 +170,7 @@ def rwkv6_time_mix(cfg: ModelConfig, ssm: SSMConfig, p: dict,
                    ) -> Tuple[torch.Tensor, dict]:
     B, S, d = x.shape
     hs = ssm.head_size
-    H = d // hs
+    H = p["wr"].shape[-1] // hs          # this shard's heads (all: d // hs)
     pad = (-S) % chunk
     x_orig = x
     if pad:
@@ -180,12 +189,13 @@ def rwkv6_time_mix(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     if use_kernel:
         # (B, S, H, hs) in and out: the kernel reads the projections'
         # layout through strides, so nothing is folded or transposed
-        y, S_new = rwkv6_scan(r, k, v, log_w, S0, p["u"], chunk=chunk)
+        y, S_new = rwkv6_scan_shard(r, k, v, log_w, S0, p["u"],
+                                    chunk=chunk)
     else:
         y, S_new = rwkv6_chunked(r, k, v, log_w, p["u"], S0, chunk)
     y = y[:, :S] if pad else y
     g = g[:, :S] if pad else g
-    y = _rwkv_groupnorm(y.reshape(B, S, d), p["ln_x"], H)
+    y = _rwkv_groupnorm(y.reshape(B, S, H * hs), p["ln_x"], H)
     out = _mm(y.to(x.dtype) * g, p["wo"])
     new_state = {"S": S_new, "shift_tm": x_orig[:, -1, :]}
     return out, new_state
@@ -195,9 +205,9 @@ def rwkv6_time_mix_step(cfg: ModelConfig, ssm: SSMConfig, p: dict,
                         x: torch.Tensor, state: dict
                         ) -> Tuple[torch.Tensor, dict]:
     """Exact single-token recurrence. x: (B,1,d)."""
-    B, _, d = x.shape
+    B = x.shape[0]
     hs = ssm.head_size
-    H = d // hs
+    H = p["wr"].shape[-1] // hs
     xprev = state["shift_tm"][:, None, :]
     r, k, v, g, log_w = _rwkv6_rkvgw(p, x, xprev, H, hs)
     r, k, v, lw = (t[:, 0] for t in (r, k, v, log_w))    # (B,H,hs)
@@ -206,20 +216,31 @@ def rwkv6_time_mix_step(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     y = torch.einsum("bhk,bhkv->bhv", r,
                      S0 + p["u"][None, :, :, None] * outer)
     S_new = S0 * torch.exp(lw)[..., None] + outer
-    y = _rwkv_groupnorm(y.reshape(B, 1, d), p["ln_x"], H)
+    y = _rwkv_groupnorm(y.reshape(B, 1, H * hs), p["ln_x"], H)
     out = _mm(y.to(x.dtype) * g, p["wo"])
     return out, {"S": S_new, "shift_tm": x[:, -1, :]}
 
 
-def rwkv6_channel_mix(p: dict, x: torch.Tensor, state: Optional[dict]
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    prev = state["shift_cm"] if state is not None else None
+def channel_mix_factors(p: dict, x: torch.Tensor,
+                        prev: Optional[torch.Tensor]):
+    """The channel mix's two factors, the receptance ``sigmoid(xr @
+    wr_cm)`` and the value ``relu(xk @ wk_cm)**2 @ wv_cm``, and the last
+    position (the next shift state). ``prev``: the shift state or None.
+    Over a mesh the value is a partial sum, reduced before the product
+    (``models/model.py``)."""
     xprev = _token_shift(x, prev)
     xk = x + (xprev - x) * p["mu_k_cm"]
     xr = x + (xprev - x) * p["mu_r_cm"]
     kk = F.relu(_mm(xk, p["wk_cm"]))
-    out = torch.sigmoid(_mm(xr, p["wr_cm"])) * _mm(kk * kk, p["wv_cm"])
-    return out, x[:, -1, :]
+    return (torch.sigmoid(_mm(xr, p["wr_cm"])), _mm(kk * kk, p["wv_cm"]),
+            x[:, -1, :])
+
+
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, state: Optional[dict]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    r, v, last = channel_mix_factors(
+        p, x, state["shift_cm"] if state is not None else None)
+    return r * v, last
 
 
 def init_rwkv_state(cfg: ModelConfig, ssm: SSMConfig, batch: int, *,
@@ -325,17 +346,32 @@ def mamba_ssd_chunked(xh, B_, C_, log_a, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
+def _local_dims(p, ssm: SSMConfig):
+    """(d_inner, heads, d_state) of the heads ``p`` holds."""
+    di = p["x_proj"].shape[-1]
+    return di, di // P_HEAD, ssm.d_state
+
+
 def _mamba_proj(p, x):
     return (_mm(x, p["z_proj"]), _mm(x, p["x_proj"]), _mm(x, p["bc_proj"]),
             _mm(x, p["dt_proj"]))
 
 
-def _mamba_post(p, y, z, x_heads, B, S, di):
+def _mamba_post(p, y, z, x_heads, B, S, di, norm_group=None):
+    """``norm_group``: the process group over which ``d_inner`` is split
+    (None: this rank holds all of it). The gated RMSNorm's mean runs
+    over the whole ``d_inner``, so a shard sums its squares and the sums
+    are added across the group."""
     y = y + p["d_skip"][None, None, :, None] * x_heads
     y = y.reshape(B, S, di)
     # gated RMSNorm
     yz = y * F.silu(z.float())
-    var = torch.mean(torch.square(yz), dim=-1, keepdim=True)
+    if norm_group is None:
+        var = torch.mean(torch.square(yz), dim=-1, keepdim=True)
+    else:
+        var = sh.sum_partials(torch.sum(torch.square(yz), dim=-1,
+                                        keepdim=True), norm_group) / (
+            di * sh.dist.get_world_size(norm_group))
     y = yz * torch.rsqrt(var + 1e-6) * p["norm"].float()
     # the reference casts down to the compute dtype BEFORE the
     # out projection
@@ -343,10 +379,11 @@ def _mamba_post(p, y, z, x_heads, B, S, di):
 
 
 def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
-                  x: torch.Tensor, state: Optional[dict], chunk: int = 64
-                  ) -> Tuple[torch.Tensor, dict]:
+                  x: torch.Tensor, state: Optional[dict], chunk: int = 64,
+                  norm_group=None) -> Tuple[torch.Tensor, dict]:
+    """``norm_group``: see ``_mamba_post``."""
     B, S, d = x.shape
-    di, H, N = mamba_dims(cfg, ssm)
+    di, H, N = _local_dims(p, ssm)
     padn = (-S) % chunk
     if padn:
         x = F.pad(x, (0, 0, 0, padn))
@@ -370,7 +407,7 @@ def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     if padn:
         y, z, x_heads = y[:, :S], z[:, :S], x_heads[:, :S]
         xs_pre, bc_pre = xs_pre[:, :S], bc_pre[:, :S]
-    out = _mamba_post(p, y, z, x_heads, B, S, di)
+    out = _mamba_post(p, y, z, x_heads, B, S, di, norm_group)
     W = ssm.d_conv
 
     def hist(carry, pre):
@@ -384,10 +421,10 @@ def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
 
 
 def mamba_step(cfg: ModelConfig, ssm: SSMConfig, p: dict, x: torch.Tensor,
-               state: dict) -> Tuple[torch.Tensor, dict]:
+               state: dict, norm_group=None) -> Tuple[torch.Tensor, dict]:
     """Exact single-token recurrence. x: (B,1,d)."""
     B = x.shape[0]
-    di, H, N = mamba_dims(cfg, ssm)
+    di, H, N = _local_dims(p, ssm)
     z, xs_pre, bc_pre, dt = _mamba_proj(p, x)
     W = ssm.d_conv
     conv_in = torch.cat([state["conv"].to(x.dtype), xs_pre],
@@ -406,7 +443,7 @@ def mamba_step(cfg: ModelConfig, ssm: SSMConfig, p: dict, x: torch.Tensor,
     h = state["h"] * a[:, :, None, None] + \
         xdt[..., None] * B_[:, 0].float()[:, None, None, :]
     y = torch.einsum("bn,bhpn->bhp", C_[:, 0].float(), h)[:, None]
-    out = _mamba_post(p, y, z, x_heads, B, 1, di)
+    out = _mamba_post(p, y, z, x_heads, B, 1, di, norm_group)
     return out, {"h": h, "conv": conv_in[:, -(W - 1):, :],
                  "conv_bc": conv_in_bc[:, -(W - 1):, :]}
 

@@ -213,6 +213,16 @@ def place(x: torch.Tensor, mesh, placements) -> DTensor:
     return rep.redistribute(mesh, tuple(placements))
 
 
+def to_placements(x: torch.Tensor, mesh, placements) -> DTensor:
+    """``x`` on ``placements``: a DTensor redistributed where its layout
+    differs, a plain tensor (the global value) placed."""
+    placements = tuple(placements)
+    if not isinstance(x, DTensor):
+        return place(x, mesh, placements)
+    return x if tuple(x.placements) == placements else \
+        x.redistribute(mesh, placements)
+
+
 def full(x):
     """The whole value of a DTensor on every rank (a plain tensor as it
     is)."""
@@ -271,6 +281,30 @@ class _AllReduceSum(torch.autograd.Function):
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
+
+
+class _SumPartials(torch.autograd.Function):
+    """Sum over a process group of each rank's partial value, where each
+    rank then uses the sum for its own part of the work (its own
+    columns): the gradient of the sum is the sum of the ranks'
+    gradients, so the backward sums too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumPartials.apply(x, group)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:

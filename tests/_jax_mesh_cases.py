@@ -40,7 +40,7 @@ def main(work: str) -> None:
         params, _ = jax_ckpt.restore(
             os.path.join(work, SP.params_key(spec)), 0,
             init_params(jax.random.PRNGKey(0), cfg))
-        if name in SP.TRAIN or name in SP.KIMI_TRAIN:
+        if name in SP.TRAIN or name in SP.ADAFACTOR:
             shape = dataclasses.replace(get_shape("train_4k"),
                                         seq_len=SP.SEQ,
                                         global_batch=SP.BATCH)

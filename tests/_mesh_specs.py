@@ -6,10 +6,13 @@ import dataclasses
 
 SEQ, BATCH = 32, 4
 
-#: two AdamW steps of Qwen3, fsdp off and on, and a vocab that shards
+#: two AdamW steps of Qwen3, fsdp off and on, and a vocab that shards;
+#: of RWKV-6, fsdp off and on
 TRAIN = {"qwen3": dict(arch="qwen3-8b"),
          "qwen3_fsdp": dict(arch="qwen3-8b", fsdp=True),
-         "qwen3_v4096": dict(arch="qwen3-8b", fsdp=True, vocab=4096)}
+         "qwen3_v4096": dict(arch="qwen3-8b", fsdp=True, vocab=4096),
+         "rwkv6": dict(arch="rwkv6-1.6b"),
+         "rwkv6_fsdp": dict(arch="rwkv6-1.6b", fsdp=True)}
 #: MoE forwards: tp and ep; the last drops tokens (capacity factor 0.5)
 MOE = {"mixtral_tp": dict(arch="mixtral-8x7b", es="tp"),
        "mixtral_ep": dict(arch="mixtral-8x7b", es="ep"),
@@ -23,7 +26,15 @@ FWD = {"hubert": dict(arch="hubert-xlarge", fsdp=True),
 #: one Adafactor step of Kimi-K2 with ep and fsdp
 KIMI_TRAIN = {"kimi_train": dict(arch="kimi-k2-1t-a32b", es="ep",
                                  fsdp=True)}
-ALL = {**TRAIN, **MOE, **FWD, **KIMI_TRAIN}
+#: one Adafactor step of Jamba (one 8-layer period: Mamba, attention and
+#: MoE layers) with tp
+JAMBA_TRAIN = {"jamba_train": dict(arch="jamba-1.5-large-398b", es="tp")}
+#: one Adafactor step each
+ADAFACTOR = {**KIMI_TRAIN, **JAMBA_TRAIN}
+#: prefill then greedy decode steps, over the mesh and without (the
+#: port's alone: tokens must be equal)
+GREEDY = ("qwen3", "rwkv6_fsdp", "jamba_train")
+ALL = {**TRAIN, **MOE, **FWD, **ADAFACTOR}
 
 
 def params_key(spec: dict) -> str:

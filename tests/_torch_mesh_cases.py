@@ -84,8 +84,25 @@ def _train(work, name, ctx, steps):
     for i in range(steps):
         batch = device_batch(host_batch(cfg, shape(name), i), "cpu", ctx)
         params, opt, m = step(params, opt, batch)
-        rows.append([float(m["loss"]), float(m["grad_norm"])])
+        rows.append([float(m["loss"]), float(m["grad_norm"]),
+                     float(m["ce"])])
     return np.array(rows), _flat(params)
+
+
+def _ce_grads(work, name, ctx):
+    """The gradient of the cross-entropy alone (no router loss, whose
+    mesh value is the shards' mean by design) at the case's parameters,
+    on the first batch, flattened."""
+    cfg = config(name)
+    params = M.distribute_params(ctx, cfg, load_params(work, name))
+    batch = device_batch(host_batch(cfg, shape(name), 0), "cpu", ctx)
+
+    def ce(p, b):
+        hidden, _, _ = M.forward(cfg, p, tokens=b["tokens"], mode="train",
+                                 ctx=ctx)
+        return M.loss_fn(cfg, p, hidden, b["labels"], ctx=ctx), {}
+    _, grads = S.loss_and_grads(ce, params, batch)
+    return _flat(grads)
 
 
 def _forward(work, name, ctx, tokens, embeds):
@@ -103,24 +120,47 @@ def _forward(work, name, ctx, tokens, embeds):
     return _np(h), float(aux)
 
 
-def _greedy(work, ctx, n_new=4, prompt=8):
-    """Qwen3 prefill of ``prompt`` tokens, then ``n_new`` greedy decode
-    steps: the tokens (B, n_new)."""
-    name = "qwen3"
+def _state_leaves(tree) -> list:
+    """A prefill / decode state tree's tensors, gathered whole, in an
+    order that does not depend on how the dicts were built (keys
+    sorted; a KV cache's integer cursor left out)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _state_leaves(v)]
+    if isinstance(tree, int) or tree is None:
+        return []
+    return [_np(tree).ravel()]
+
+
+def _greedy(work, name, ctx, n_new=4, prompt=8):
+    """The case's prefill of ``prompt`` tokens, then ``n_new`` greedy
+    decode steps: the tokens (B, n_new), the logits of the prefill and
+    of every decode step (the last one's too), flattened, and the final
+    states gathered whole, flattened. Every parameter is moved by seeded
+    noise first, so that no per-head tensor is alike across heads
+    (RWKV's ``u`` is drawn as zeros, ``ln_x`` as ones): a shard that
+    took another rank's rows would show."""
     cfg = config(name)
-    params = M.distribute_params(ctx, cfg, load_params(work, name))
+    g = torch.Generator().manual_seed(1)
+    params = O.tree_map(
+        lambda t: t + 0.05 * torch.randn(t.shape, generator=g).to(t.dtype)
+        if t.is_floating_point() else t, load_params(work, name))
+    params = M.distribute_params(ctx, cfg, params)
     tokens, _ = _inputs(cfg, name)
     tokens = tokens[:, :prompt]
     B = tokens.shape[0]
     prefill = S.make_prefill_step(cfg, max_seq=prompt + n_new, ctx=ctx)
     decode = S.make_decode_step(cfg, B, ctx=ctx)
     states, logits = prefill(params, {"tokens": tokens})
-    out = []
+    out, seen = [], [_np(logits).ravel()]
     for _ in range(n_new):
         nxt = torch.argmax(full(logits)[:, -1], dim=-1).to(torch.int32)
         out.append(nxt.numpy().copy())
         states, logits = decode(params, states, nxt[:, None])
-    return np.stack(out, axis=1)
+        seen.append(_np(logits).ravel())
+    return (np.stack(out, axis=1), np.concatenate(seen),
+            np.concatenate(_state_leaves(states)))
 
 
 def _elastic(work, ctx):
@@ -175,17 +215,18 @@ def _cli():
 
 
 def _refused(ctx):
-    """The rwkv and mamba mixers under a mesh: the NotImplementedError's
-    message, or '' when nothing was raised."""
+    """The rwkv and mamba mixers under a mesh: the Trainer builds for
+    each and takes one step (the message of what it raised, or '' when
+    nothing was)."""
     out = []
     for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
         cfg = get_reduced_config(arch)
         try:
-            Trainer(cfg, shape("qwen3"), TrainerConfig(), device="cpu",
-                    ctx=make_ctx(cfg, ctx.mesh))
+            Trainer(cfg, shape("qwen3"), TrainerConfig(total_steps=1),
+                    device="cpu", ctx=make_ctx(cfg, ctx.mesh)).train()
             out.append("")
-        except NotImplementedError as e:
-            out.append(str(e))
+        except Exception as e:  # noqa: BLE001 - the message is the result
+            out.append(f"{type(e).__name__}: {e}")
     return np.array(out)
 
 
@@ -198,11 +239,15 @@ def run_all(work: str) -> dict:
         for tag, c in (("one", NO_MESH), ("mesh", ctx)):
             res[f"{name}/{tag}/metrics"], res[f"{name}/{tag}/params"] = \
                 _train(work, name, c, 2)
-    for name in SP.KIMI_TRAIN:
+    for name in SP.ADAFACTOR:
         ctx = make_ctx(config(name), mesh)
         for tag, c in (("one", NO_MESH), ("mesh", ctx)):
             res[f"{name}/{tag}/metrics"], res[f"{name}/{tag}/params"] = \
                 _train(work, name, c, 1)
+    for name in ("rwkv6_fsdp", "jamba_train"):
+        ctx = make_ctx(config(name), mesh)
+        for tag, c in (("one", NO_MESH), ("mesh", ctx)):
+            res[f"{name}/{tag}/ce_grads"] = _ce_grads(work, name, c)
     for name in {**SP.MOE, **SP.FWD}:
         cfg = config(name)
         ctx = make_ctx(cfg, mesh)
@@ -219,9 +264,12 @@ def run_all(work: str) -> dict:
                              None if embeds is None else embeds[i:i + half])
                     [0] for i in (0, half)]
             res[f"{name}/per_shard/hidden"] = np.concatenate(rows)
+    for name in SP.GREEDY:
+        for tag, c in (("one", NO_MESH), ("mesh", make_ctx(config(name),
+                                                           mesh))):
+            (res[f"greedy_{name}/{tag}"], res[f"greedy_{name}/{tag}/logits"],
+             res[f"greedy_{name}/{tag}/states"]) = _greedy(work, name, c)
     ctx = make_ctx(config("qwen3"), mesh)
-    res["greedy/one"] = _greedy(work, NO_MESH)
-    res["greedy/mesh"] = _greedy(work, ctx)
     res["elastic/err"], res["elastic/steps"] = _elastic(work, ctx)
     res["cli"] = _cli()
     res["refused"] = _refused(ctx)

@@ -543,3 +543,120 @@ def test_flash_per_shard_entry_on_a_1x1_mesh_is_the_direct_call(cuda, dh):
         assert torch.equal(out.to_local(), direct)
     finally:
         dist.destroy_process_group()
+
+
+def test_wkv_per_shard_entry_on_a_1x1_mesh_is_the_direct_call(cuda):
+    """K4 through the per-shard entry (``rwkv6_scan_shard``, the mesh
+    path's) inside a per-shard body on a 1 x 1 NCCL mesh, its heads
+    split over ``model``: one launch, the same bits as the direct
+    ``rwkv6_scan`` call."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_shard
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import sharding as sh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    mesh_lib.init_single("cuda")
+    try:
+        ctx = sh.ParallelCtx(mesh=mesh_lib.make_mesh(
+            (1, 1), ("data", "model"), device="cuda"))
+        rng = np.random.default_rng(5)
+        B, S, H, hs = 2, 96, 8, 64
+        r, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, hs)).astype(np.float32)).to(cuda) for _ in range(3))
+        lw = -torch.exp(torch.from_numpy(rng.standard_normal(
+            (B, S, H, hs)).astype(np.float32)).to(cuda) - 1.0)
+        s0 = torch.zeros((B, H, hs, hs), device=cuda)
+        u = torch.from_numpy(rng.standard_normal((H, hs)).astype(
+            np.float32)).to(cuda)
+        y, sT = rwkv6_scan(r, k, v, lw, s0, u, chunk=16)
+        on = [ctx.constrain(t, "batch", None, "heads", None)
+              for t in (r, k, v, lw)]
+        s_on = ctx.constrain(s0, "batch", "heads", None, None)
+        before = rwkv6_scan.launches
+        ys, sTs = sh.shard_map(
+            ctx, lambda *a: rwkv6_scan_shard(*a, u, chunk=16),
+            (*on, s_on), (on[0].placements, s_on.placements))
+        torch.cuda.synchronize()
+        assert rwkv6_scan.launches == before + 1
+        assert torch.equal(ys.to_local(), y)
+        assert torch.equal(sTs.to_local(), sT)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_recurrent_prefill_on_a_1x1_mesh_equals_no_mesh(cuda, arch):
+    """The reduced RWKV-6 and Jamba (fp32, K4 / K3 on) prefill then two
+    greedy decode steps over a 1 x 1 NCCL mesh (fsdp on): the logits of
+    every step equal the no-mesh run's, and so do the tokens."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import NO_MESH, full, make_ctx
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    acfg = get_reduced_config(arch)
+    acfg = acfg.replace(
+        train=dataclasses.replace(acfg.train, use_flash_kernel=True,
+                                  use_rwkv_kernel=True),
+        parallel=dataclasses.replace(acfg.parallel, fsdp=True))
+    params = M.init_params(acfg, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, acfg.model.vocab_size, (2, 70), dtype=np.int32)).to(cuda)
+    mesh_lib.init_single("cuda")
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cuda")
+        runs = []
+        for ctx in (NO_MESH, make_ctx(acfg, mesh)):
+            p = M.distribute_params(ctx, acfg, params)
+            states, logits = steps.make_prefill_step(acfg, 73, ctx)(
+                p, {"tokens": tokens})
+            decode = steps.make_decode_step(acfg, 2, ctx)
+            seen = [full(logits)[:, -1]]
+            for _ in range(2):
+                nxt = torch.argmax(seen[-1], dim=-1).to(torch.int32)
+                states, logits = decode(p, states, nxt[:, None])
+                seen.append(full(logits)[:, -1])
+            runs.append(seen)
+        for a, b in zip(*runs):
+            torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+            assert torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_roofline_counts_on_the_card_equal_the_cpu_counts(cuda, kind):
+    """``roofline.segment_costs`` of a reduced Qwen3 (the plain paths)
+    on real tensors on the card and on fake tensors on the CPU: the same
+    FLOPs, and bytes within 1 %."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline as R
+    from repro_torch.parallel.sharding import NO_MESH
+    acfg = get_reduced_config("qwen3-8b", n_layers=2)
+    acfg = acfg.replace(train=dataclasses.replace(
+        acfg.train, compute_dtype="bfloat16"))
+    shape = ShapeSpec(kind, seq_len=128, global_batch=2, kind=kind)
+    on_card = R.segment_costs(NO_MESH, acfg, shape, device="cuda")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        on_cpu = R.segment_costs(NO_MESH, acfg, shape, device="cpu")
+    assert on_card.keys() == on_cpu.keys()
+    for k in on_cpu:
+        assert on_card[k].flops == on_cpu[k].flops, k
+        assert on_card[k].bytes_accessed == pytest.approx(
+            on_cpu[k].bytes_accessed, rel=1e-2), k

@@ -25,7 +25,7 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 COPIED = sorted(
     [p.relative_to(REF).as_posix() for p in (REF / "configs").glob("*.py")]
     + ["core/payload.py", "core/netmodel.py", "core/resource.py",
-       "serve/scheduler.py", "train/fabric_train.py"]
+       "serve/scheduler.py", "train/fabric_train.py", "launch/hlo.py"]
     + [p.relative_to(REF).as_posix() for p in (REF / "workload").glob("*.py")]
     + [p.relative_to(REF).as_posix() for p in (REF / "rpc").glob("*.py")
        if p.name != "collective.py"])

@@ -193,3 +193,37 @@ def test_model_layout_reads_strided_views():
                          chunk=16)
     torch.testing.assert_close(y, yc)
     torch.testing.assert_close(sT, sTc)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_shard_entry_equals_the_scan_on_the_same_heads(n_shards):
+    """``rwkv6_scan_shard`` on each shard's heads (B, S, H / n, hs), with
+    ``u`` sliced to them, equals ``rwkv6_scan`` on all heads, restricted
+    to those heads, bit for bit; it launches nothing on the CPU, and
+    refuses a ``u`` that does not hold the shard's heads."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_shard
+    B, S, H, hs = 2, 40, 4, 16
+    rng = np.random.default_rng(7)
+    f = np.float32
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hs))
+                                .astype(f)) for _ in range(3))
+    lw = torch.from_numpy(-np.exp(rng.standard_normal((B, S, H, hs))
+                                  - 1.0).astype(f))
+    s0 = torch.from_numpy((rng.standard_normal((B, H, hs, hs)) * 0.1)
+                          .astype(f))
+    u = torch.from_numpy((rng.standard_normal((H, hs)) * 0.5).astype(f))
+    y, sT = rwkv6_scan(r, k, v, lw, s0, u, chunk=16)
+    n = H // n_shards
+    before = rwkv6_scan.launches
+    for i in range(n_shards):
+        sl = slice(i * n, (i + 1) * n)
+        parts = [t[:, :, sl] for t in (r, k, v, lw)]
+        ys, sTs = rwkv6_scan_shard(*parts, s0[:, sl], u[sl], chunk=16)
+        torch.testing.assert_close(ys, y[:, :, sl], rtol=0, atol=0)
+        torch.testing.assert_close(sTs, sT[:, sl], rtol=0, atol=0)
+    assert rwkv6_scan.launches == before
+    if n_shards == 1:
+        return
+    with pytest.raises(ValueError, match="does not hold the shard's heads"):
+        rwkv6_scan_shard(*(t[:, :, :n] for t in (r, k, v, lw)),
+                         s0[:, :n], u, chunk=16)

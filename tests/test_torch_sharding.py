@@ -16,6 +16,7 @@ from repro.parallel import sharding as jax_sharding
 from repro_torch.configs import get_reduced_config, list_archs
 from repro_torch.kernels.flash_attention.ops import kv_for_heads
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps as S
 from repro_torch.models import model as M
 from repro_torch.models.attention import repeat_kv
 from repro_torch.parallel import sharding as sh
@@ -243,8 +244,21 @@ def test_mesh_needs_its_ranks():
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
 def test_recurrent_mixers_are_refused_under_a_mesh(arch):
+    """No step builder refuses the rwkv and mamba mixers under a mesh
+    any more, and their decode states split by head over ``model`` as
+    the reference lays them out (the 2 x 2 runs are in
+    tests/test_torch_mesh.py)."""
     cfg = get_reduced_config(arch)
     ctx = sh.ParallelCtx(mesh=_PortMesh((1, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        M.check_mesh_support(cfg, ctx)
-    M.check_mesh_support(cfg, sh.NO_MESH)
+    for build in (lambda: S.make_train_step(cfg, ctx),
+                  lambda: S.make_prefill_step(cfg, 8, ctx),
+                  lambda: S.make_decode_step(cfg, 2, ctx)):
+        assert callable(build())
+    kind = cfg.model.layer_pattern[0]
+    ax = M.state_logical_axes(cfg, 2, ctx)[0]["mixer"]
+    head = ax["S"] if kind == "rwkv" else ax["h"]
+    assert head == sh.LP("batch", "heads", None, None)
+    ref = jax_model.state_logical_axes(jax_reduced(arch), 2)["pos0"][
+        "mixer"]
+    assert {k: tuple(v)[1:] for k, v in ref.items()} == \
+        {k: tuple(v) for k, v in ax.items()}

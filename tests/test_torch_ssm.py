@@ -126,8 +126,8 @@ def test_time_mix_kernel_path_hands_the_model_layout(layer0, monkeypatch,
         y, sT = ssm_rwkv6_scan(r, k, v, log_w, s0, u, chunk=chunk)
         seen.append(y.shape)
         return y, sT
-    ssm_rwkv6_scan = ssm.rwkv6_scan
-    monkeypatch.setattr(ssm, "rwkv6_scan", spy)
+    ssm_rwkv6_scan = ssm.rwkv6_scan_shard
+    monkeypatch.setattr(ssm, "rwkv6_scan_shard", spy)
     tst = ({k: torch.from_numpy(st[k]) for k in ("S", "shift_tm")}
            if with_state else None)
     tout, tnew = ssm.rwkv6_time_mix(m, m.ssm, tp, torch.from_numpy(x), tst,

@@ -42,7 +42,8 @@ from repro_torch.train import trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["qwen3-8b", "rwkv6-1.6b", "mixtral-8x7b", "jamba-1.5-large-398b"]
+ARCHS = ["qwen3-8b", "rwkv6-1.6b", "mixtral-8x7b", "jamba-1.5-large-398b",
+         "internvl2-76b"]
 SEQ, BATCH = 16, 2
 
 
