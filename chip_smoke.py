@@ -14,16 +14,22 @@ Phases (any failure raises, and the script exits non-zero):
    the reference's kernel-test cases (fp32 at 2e-5, bf16 at 2e-2), on
    cases of the wgmma path's edges, on the Qwen3-8B prefill shape and on
    its training shape (batch 2, seq 4096), each with the path it took
-   (bf16 at head dims 64 and 128 must take ``wgmma``); at the training
-   shape also per 128-row q tile, against two controls (a KV tile
-   dropped, the causal edge one key late in the last tile) that the
-   tile bound must catch; then kernel / plain / SDPA times at both
+   (bf16 at head dims 64, 80, 112, 128 and 256 must take ``wgmma``); at
+   the training shape also per 128-row q tile, against two controls (a
+   KV tile dropped, the causal edge one key late in the last tile) that
+   the tile bound must catch; then kernel / plain / SDPA times at both
    shapes, warm and with L2 flushed; the same kernel-test cases at head
-   dims 80 and 112, which run zero-padded to 128 (bf16 must take
-   ``wgmma``), two more padded head dims, and at the hubert-xlarge (dh
-   80) and kimi-k2 (dh 112) shapes the per-tile check with its
-   controls and kernel / plain / SDPA times; then the prefill shapes of
-   Jamba-1.5-Large and Kimi-K2 checked and timed the same way;
+   dims 80 and 112, which the kernel reads unpadded (bf16 must take
+   ``wgmma``; fp32 ``simt``; a head dim with an instance of its own is
+   never padded on the host), two padded head dims (48 runs as 64, 96
+   as 112), and at the hubert-xlarge (dh 80) and kimi-k2 (dh 112)
+   shapes the per-tile check with its controls and kernel / plain / SDPA
+   times; then the prefill shapes of Jamba-1.5-Large, Kimi-K2 and
+   Gemma-2-9B (dh 256, softcap 50; SDPA runs without the softcap, which
+   it does not take) checked per q tile and timed the same way; and
+   Gemma-2's shape once more with q scaled so that the logits reach
+   where the softcap binds, per q tile against a third control, the
+   softcap left out;
 3. payload pack / unpack vs plain, byte for byte (tolerance 0): the
    reference's kernel-test sizes, unaligned serialization sizes, 8
    endpoint rows of the default payload and of the Qwen3-8B payload,
@@ -66,7 +72,10 @@ Phases (any failure raises, and the script exits non-zero):
    Jamba-1.5-Large (5 of 72: positions 0-4 of its period, 4 Mamba and 1
    attention layer, MoE at 1 and 3) and Kimi-K2 (1 of 61), the same
    three ways: greedy tokens must agree, K3 must launch once an
-   attention layer a prefill, all on wgmma, and K4 never;
+   attention layer a prefill, all on wgmma, and K4 never; then Gemma-2-9B
+   at full width and depth (42 layers, dh 256, softcaps, a window of 4096
+   on alternate layers), the same three ways, 42 wgmma K3 launches a
+   prefill;
 9. training (``[train]``): Qwen3-8B at full width cut to 4 layers
    (bf16 compute, fp32 masters, AdamW, remat, seq 4096, batch 2) takes 4
    steps through the port's ``Trainer``, with the flash kernel launched
@@ -76,7 +85,7 @@ Phases (any failure raises, and the script exits non-zero):
    one position) that each of the three bounds must catch;
    hubert-xlarge at full width and depth (48 layers, dh 80, about 1 B
    parameters) the same way for 2 steps at seq 4096, batch 1, all 96
-   flash launches a step on wgmma (dh padded to 128), the control held
+   flash launches a step on wgmma (dh 80 read unpadded), the control held
    by the ``wq`` bound; Mixtral-8x7B at full width cut to 1 layer (seq
    4096, batch 2, AdamW) the same way for 4 steps, with the (token,
    expert) assignments that flip between kernel and plain counted and
@@ -169,17 +178,23 @@ FA_CASES = [
 ]
 # the wgmma path's edges, bf16: a ragged length (not a multiple of the
 # 128-row tile), G = 1 / 4 / 8 q heads a kv head, non-causal, window with
-# softcap
+# softcap; then the head dims whose last 64-column block is partial (80,
+# 112) and dh 256's 64-key tiles
 FA_WG_CASES = [
     (1, 200, 8, 2, 128, True, None, None),
     (2, 200, 4, 4, 64, True, None, None),
     (1, 256, 8, 1, 128, True, None, None),
     (1, 200, 8, 8, 128, False, None, None),
     (1, 320, 4, 1, 128, True, 100, 20.0),
+    (1, 200, 8, 8, 80, True, None, None),
+    (2, 130, 8, 1, 112, False, 48, 30.0),
+    (1, 200, 8, 1, 256, True, None, 50.0),
+    (2, 130, 8, 8, 256, False, 100, None),
 ]
-# head dims without an instance of their own, run as the next one on
-# zero-padded inputs: hubert-xlarge's 80 and kimi-k2-1t-a32b's 112 as 128
-# (bf16 on wgmma, fp32 on SIMT), on the cases above; then two more
+# hubert-xlarge's 80 and kimi-k2-1t-a32b's 112, instances of their own
+# read unpadded (bf16 on wgmma, fp32 on SIMT), on the cases above; then
+# two head dims without an instance, run as the next one on zero-padded
+# inputs (48 as 64, 96 as 112)
 FA_NEW_HEAD_DIMS = (80, 112)
 FA_PADDED_CASES = [(1, 100, 4, 2, 48, True, None, None),
                    (1, 90, 4, 2, 96, False, None, None)]
@@ -188,13 +203,30 @@ FA_PADDED_CASES = [(1, 100, 4, 2, 48, True, None, None),
 # 112 over 8 kv heads, causal), batch 1
 FA_HEAD_DIM_SHAPES = {"hubert-xlarge": (1, 4096, 16, 16, 80, False),
                       "kimi-k2-1t-a32b": (1, 4096, 64, 8, 112, True)}
-# K3's prefill shapes in the MoE and Mamba models' serving (batch 4,
-# prompt 512, causal) that Qwen3-8B's does not cover (Mixtral's is
-# Qwen3-8B's: 32 heads of 128 over 8, its window of 4096 binds nowhere
-# in 512): Jamba's 64 heads of 128 over 8, Kimi-K2's 64 of 112 over 8
-FA_PREFILL_SHAPES = {"jamba-1.5-large-398b": (BATCH, PROMPT_LEN, 64, 8, 128),
-                     "kimi-k2-1t-a32b": (BATCH, PROMPT_LEN, 64, 8, 112)}
+# K3's prefill shapes in the other served models (batch 4, prompt 512,
+# causal) that Qwen3-8B's does not cover (Mixtral's is Qwen3-8B's: 32
+# heads of 128 over 8, its window of 4096 binds nowhere in 512): Jamba's
+# 64 heads of 128 over 8, Kimi-K2's 64 of 112 over 8, and Gemma-2-9B's 16
+# of 256 over 8 with its attention softcap of 50 (its window of 4096 on
+# alternate layers binds nowhere in 512 either); the last number is the
+# softcap. Each is also checked per q tile (TILE_REL_TOL).
+FA_PREFILL_SHAPES = {
+    "jamba-1.5-large-398b": (BATCH, PROMPT_LEN, 64, 8, 128, None),
+    "kimi-k2-1t-a32b": (BATCH, PROMPT_LEN, 64, 8, 112, None),
+    "gemma2-9b": (BATCH, PROMPT_LEN, 16, 8, 256, 50.0)}
+# Qwen3-8B's attention (q heads, kv heads, head dim), at [serve]'s
+# prefill and [train]'s step
+QWEN3_HEADS = (32, 8, 128)
+# Gemma-2's prefill shape again with q scaled by SOFTCAP_Q_SCALE: the
+# scaled logits q k / sqrt(dh) spread to about +-30 and past 100, where
+# the softcap of 50 binds (at randn inputs they stay near +-1, where 50
+# tanh(x / 50) is x to 1e-4 and a kernel without the softcap passes).
+# There an error d in tanh moves a logit by 50 d: the tile bound must
+# catch the softcap left out, and would catch a rough tanh
+SOFTCAP_Q_SCALE = 30.0
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the head dims whose bf16 launches must take the wgmma path
+WG_HEAD_DIMS = (64, 80, 112, 128, 256)
 # K3 at the Qwen3-8B training shape and at the head-dim shapes above,
 # against plain, per (batch, head, 128-row q tile): mean|kernel - plain|
 # / mean|plain|. An element of o is a mean over up to 4096 keys (about
@@ -274,6 +306,12 @@ RWKV_E2E_REL_TOL = 8.5e-2
 # none.
 MOE_SERVE = (("mixtral-8x7b", 8, 8), ("jamba-1.5-large-398b", 5, 1),
              ("kimi-k2-1t-a32b", 1, 1))
+# Gemma-2-9B served whole (42 layers of 16 q / 8 kv heads of 256, softcap
+# 50, a window of 4096 on alternate layers, GeGLU, tied embeddings over a
+# 256,000-token vocabulary, final logit softcap 30): 9.2 B parameters,
+# 18.5 GB in bf16, so nothing is cut. K3 launches once a layer a prefill,
+# at dh 256 on wgmma.
+GEMMA_ARCH, GEMMA_LAYERS = "gemma2-9b", 42
 # payload pack / unpack: the reference's kernel-test sizes (aligned, and
 # lists drawn as its hypothesis property draws them), the unaligned
 # sizes serialization hands the kernels, and the endpoint rows of the
@@ -319,9 +357,10 @@ TRAIN_WQ_LAYER = 1
 # is close to the mean of v, and shifting the rows by one moves the loss
 # and the gradient norm about as much as the kernel's own bf16 rounding
 # does: loss 2.99e-5 sound / 3.31e-5 control, grad norm 9.76e-6 /
-# 5.18e-5 (NVIDIA H100 80GB HBM3, 700 W; on the mma.sync instance dh 80
-# had before it was padded to 128: loss 2.65e-5 / 6.02e-5, grad norm
-# 7.38e-5 / 4.32e-5). Only the wq gradient tells the two apart (0.00368 /
+# 5.18e-5 (NVIDIA H100 80GB HBM3, 700 W; the same digits with dh 80
+# zero-padded to 128 and read unpadded; on an mma.sync instance: loss
+# 2.65e-5 / 6.02e-5, grad norm 7.38e-5 / 4.32e-5). Only the wq gradient
+# tells the two apart (0.00368 /
 # 0.0866), so the control is held by the wq bound alone, which lies
 # between; the loss and grad-norm bounds hold the sound run, 3x or more
 # above every sound reading.
@@ -485,10 +524,63 @@ def phase_build(name: str) -> None:
               f"{sass.count('CALL')} calls")
 
 
-def phase_kernel(name: str) -> dict:
+@contextlib.contextmanager
+def counting_pads():
+    """K3's host pad (``ops.padded``) counting its calls, in ``n[0]`` of
+    the list it yields, while the block runs; restored after it."""
+    from repro_torch.kernels.flash_attention import ops
+    n, host_pad = [0], ops.padded
+
+    def counted(*args):
+        n[0] += 1
+        return host_pad(*args)
+    ops.padded = counted
+    try:
+        yield n
+    finally:
+        ops.padded = host_pad
+
+
+def k3_times(name: str, label: str, q, k, v, causal=True,
+             cap=None) -> dict:
+    """K3 / plain / SDPA at one shape, warm and L2 flushed, with the
+    bound. SDPA takes no softcap: where ``cap`` is set it runs without
+    it."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention,
                                                      kernel_path)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    calls = {"kernel": lambda: flash_attention(q, k, v, causal, None, cap),
+             "plain": lambda: attention_plain(q, k, v, causal, None, cap),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    warm = {key: cuda_ms(fn) for key, fn in calls.items()}
+    cold = {key: gpu_ms(fn) for key, fn in calls.items()}
+    bound_ms, bound_by = attention_bound(q, k, v, causal, None)
+    kpath = kernel_path(q.dtype, q.shape[-1])
+    for how, t in (("warm", warm), ("L2 flushed", cold)):
+        print(f"[kernel] {label} q{tuple(q.shape)} kv {k.shape[2]} "
+              f"bf16 {'causal' if causal else 'non-causal'}"
+              f"{f' softcap {cap}' if cap else ''} on "
+              f"{name}, {how}: kernel ({kpath}) {t['kernel']:.4f} ms, "
+              f"attention_plain {t['plain']:.4f} ms, SDPA"
+              f"{' (no softcap)' if cap else ''} "
+              f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+    return {"ms": warm["kernel"], "plain_ms": warm["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": warm["sdpa"], "ms_l2_flushed": cold["kernel"],
+            "plain_ms_l2_flushed": cold["plain"],
+            "library_ms_l2_flushed": cold["sdpa"],
+            "library": f"SDPA{' without softcap' if cap else ''}"}
+
+
+def phase_kernel(name: str) -> dict:
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention,
+                                                     kernel_path, ops)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(B, S, H, KV, dh, dtype):
@@ -502,14 +594,24 @@ def phase_kernel(name: str) -> dict:
                           generator=gen).to(dtype)
         return [qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]]
 
+    def saturated(B, S, H, KV, dh, dtype):
+        # the logits where the softcap binds (SOFTCAP_Q_SCALE)
+        q, k, v = inputs(B, S, H, KV, dh, torch.float32)
+        return [(t * s).to(dtype) for t, s in
+                ((q, SOFTCAP_Q_SCALE), (k, 1.0), (v, 1.0))]
+
     def compare(case, dtype, make=inputs):
         B, S, H, KV, dh, causal, window, cap = case
         q, k, v = make(B, S, H, KV, dh, dtype)
         before = dict(flash_attention.launches_by_path)
-        out = flash_attention(q, k, v, causal, window, cap)
-        torch.cuda.synchronize()
+        # host pads: a head dim with an instance of its own (80 and 112
+        # among them) must reach the kernel unpadded
+        with counting_pads() as pads:
+            out = flash_attention(q, k, v, causal, window, cap)
+            torch.cuda.synchronize()
         ran = [p for p, n in flash_attention.launches_by_path.items()
                if n != before[p]]
+        padded = pads[0] > 0
         ref = attention_plain(q, k, v, causal, window, cap)
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOLS[dtype]
@@ -517,15 +619,17 @@ def phase_kernel(name: str) -> dict:
         want = kernel_path(dtype, dh)
         print(f"[kernel] {str(dtype)[6:]:8s} B={B} S={S} H={H} KV={KV} "
               f"dh={dh} causal={causal} window={window} softcap={cap}"
-              f"{' strided' if make is strided else ''}: path "
-              f"{'+'.join(ran) or 'none'} max_abs_err={err:.3g} tol={tol} "
-              f"{'ok' if ok else 'FAIL'}")
-        if ran != [want] or (dtype == torch.bfloat16 and dh in (64, 128)
-                             and want != "wgmma") or (
-                dtype == torch.bfloat16 and dh in FA_NEW_HEAD_DIMS
-                and want != "wgmma"):
+              f"{'' if make is inputs else ' ' + make.__name__}: path "
+              f"{'+'.join(ran) or 'none'}"
+              f"{f' (padded to {ops.padded_head_dim(dh)})' if padded else ''}"
+              f" max_abs_err={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
+        if ran != [want] or (dtype == torch.bfloat16 and dh in WG_HEAD_DIMS
+                             and want != "wgmma"):
             raise AssertionError(f"flash kernel ran {ran} on {case} "
                                  f"{dtype}, not {want}")
+        if padded != (ops.padded_head_dim(dh) != dh):
+            raise AssertionError(f"dh {dh} {'was' if padded else 'was not'}"
+                                 f" padded on the host")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with "
                                  f"attention_plain on {case} {dtype}")
@@ -546,45 +650,19 @@ def phase_kernel(name: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in FA_PADDED_CASES:
             compare(case, dtype)
-    main_case = (BATCH, PROMPT_LEN, 32, 8, 128, True, None, None)
+    main_case = (BATCH, PROMPT_LEN, *QWEN3_HEADS, True, None, None)
     compare(main_case, torch.bfloat16, make=strided)
     err, (q, k, v) = compare(main_case, torch.bfloat16)
     path = kernel_path(q.dtype, q.shape[-1])
-
-    def times(label, q, k, v, causal=True):
-        """Kernel / plain / SDPA at one shape, warm and L2 flushed."""
-        import torch.nn.functional as F
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        calls = {"kernel": lambda: flash_attention(q, k, v, causal),
-                 "plain": lambda: attention_plain(q, k, v, causal),
-                 "sdpa": lambda: F.scaled_dot_product_attention(
-                     qt, kt, vt, is_causal=causal, enable_gqa=True)}
-        warm = {key: cuda_ms(fn) for key, fn in calls.items()}
-        cold = {key: gpu_ms(fn) for key, fn in calls.items()}
-        bound_ms, bound_by = attention_bound(q, k, v, causal, None)
-        kpath = kernel_path(q.dtype, q.shape[-1])
-        for how, t in (("warm", warm), ("L2 flushed", cold)):
-            print(f"[kernel] {label} q{tuple(q.shape)} kv {k.shape[2]} "
-                  f"bf16 {'causal' if causal else 'non-causal'} on "
-                  f"{name}, {how}: kernel ({kpath}) {t['kernel']:.4f} ms, "
-                  f"attention_plain {t['plain']:.4f} ms, SDPA "
-                  f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
-        return {"ms": warm["kernel"], "plain_ms": warm["plain"],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": warm["sdpa"], "ms_l2_flushed": cold["kernel"],
-                "plain_ms_l2_flushed": cold["plain"],
-                "library_ms_l2_flushed": cold["sdpa"]}
-
-    serving = times("Qwen3-8B prefill", q, k, v)
+    serving = k3_times(name, "Qwen3-8B prefill", q, k, v)
     del q, k, v
-    train_case = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, True, None, None)
+    train_case = (TRAIN_BATCH, TRAIN_SEQ, *QWEN3_HEADS, True, None, None)
     train_err, (q, k, v) = compare(train_case, torch.bfloat16)
     tile_err = tile_check(name, "Qwen3-8B training",
                           flash_attention(q, k, v, True), q, k, v, True)
     training = {"shape": f"q{tuple(q.shape)} bf16 causal",
                 "max_abs_err": train_err, "tile_rel_err": tile_err,
-                **times("Qwen3-8B training", q, k, v)}
+                **k3_times(name, "Qwen3-8B training", q, k, v)}
     del q, k, v
     torch.cuda.empty_cache()
     head_dims = {}
@@ -598,19 +676,34 @@ def phase_kernel(name: str) -> dict:
                      f"{'causal' if causal else 'non-causal'}",
             "path": kernel_path(q.dtype, dh), "max_abs_err": e,
             "tile_rel_err": tile,
-            **times(arch, q, k, v, causal)}
+            **k3_times(name, arch, q, k, v, causal)}
         del q, k, v
         torch.cuda.empty_cache()
     prefill_shapes = {}
-    for arch, (B, S, H, KV, dh) in FA_PREFILL_SHAPES.items():
-        e, (q, k, v) = compare((B, S, H, KV, dh, True, None, None),
+    for arch, (B, S, H, KV, dh, cap) in FA_PREFILL_SHAPES.items():
+        e, (q, k, v) = compare((B, S, H, KV, dh, True, None, cap),
                                torch.bfloat16)
+        tile = tile_check(name, f"{arch} prefill",
+                          flash_attention(q, k, v, True, None, cap),
+                          q, k, v, True, cap)
         prefill_shapes[arch] = {
-            "shape": f"q{tuple(q.shape)} kv {KV} bf16 causal",
+            "shape": f"q{tuple(q.shape)} kv {KV} bf16 causal"
+                     f"{f' softcap {cap}' if cap else ''}",
             "path": kernel_path(q.dtype, dh), "max_abs_err": e,
-            **times(f"{arch} prefill", q, k, v)}
+            "tile_rel_err": tile,
+            **k3_times(name, f"{arch} prefill", q, k, v, True, cap)}
         del q, k, v
         torch.cuda.empty_cache()
+    B, S, H, KV, dh, cap = FA_PREFILL_SHAPES["gemma2-9b"]
+    label = "gemma2-9b prefill past the softcap"
+    e, (q, k, v) = compare((B, S, H, KV, dh, True, None, cap),
+                           torch.bfloat16, make=saturated)
+    tile = tile_check(name, label, flash_attention(q, k, v, True, None, cap),
+                      q, k, v, True, cap, softcap_control=True)
+    softcap_binding = {"shape": f"q{tuple(q.shape)} x {SOFTCAP_Q_SCALE} kv "
+                                f"{KV} bf16 causal softcap {cap}",
+                       "max_abs_err": e, "tile_rel_err": tile}
+    del q, k, v
     return {"name": "flash_attention", "route": "cuda", "path": path,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces":
@@ -618,6 +711,7 @@ def phase_kernel(name: str) -> dict:
             "max_abs_err": max(err, train_err), **serving,
             "training_shape": training, "head_dims": head_dims,
             "prefill_shapes": prefill_shapes,
+            "softcap_binding": softcap_binding,
             "head_dims_80_112_max_abs_err": new_err}
 
 
@@ -636,23 +730,27 @@ def tile_rel(out: torch.Tensor, ref: torch.Tensor):
                                                      r.shape))
 
 
-def tile_check(name: str, label: str, out, q, k, v, causal: bool) -> float:
+def tile_check(name: str, label: str, out, q, k, v, causal: bool,
+               softcap=None, softcap_control=False) -> float:
     """K3's output ``out`` on q, k, v against plain per q tile
-    (TILE_REL_TOL), and the controls the bound must catch, computed by
-    SDPA under a wrong mask: the KV tile of TILE_DROP keys S-1024 ..
-    S-1024+TILE_DROP-1 dropped (for the rows after it where causal, for
-    every row where not), and, where causal, the last q tile seeing one
-    key past the causal edge."""
+    (TILE_REL_TOL), and the controls the bound must catch, computed under
+    a wrong mask (by SDPA, or where a softcap is given by the plain
+    formula, since SDPA takes none): the KV tile of TILE_DROP keys from
+    S-1024 (from S/2 where S < 2048) dropped, for the rows after it where
+    causal, for every row where not, and, where causal, the last q tile
+    seeing one key past the causal edge; with ``softcap_control`` also
+    the softcap left out (by SDPA)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_plain
     S, G = q.shape[1], q.shape[2] // k.shape[2]
-    ref = attention_plain(q, k, v, causal)
+    ref = attention_plain(q, k, v, causal, None, softcap)
     sound, at = tile_rel(out, ref)
     i = torch.arange(S, device=q.device)
     allowed = i[:, None] >= i[None, :] if causal else \
         torch.ones(S, S, dtype=torch.bool, device=q.device)
-    lo, hi = S - 1024, S - 1024 + TILE_DROP
+    lo = S - min(1024, S // 2)
+    hi = lo + TILE_DROP
     dropped = (i[None, :] >= lo) & (i[None, :] < hi)
     masks = {f"keys {lo}-{hi - 1} dropped"
              f"{f' from row {hi} on' if causal else ''}":
@@ -661,11 +759,22 @@ def tile_check(name: str, label: str, out, q, k, v, causal: bool) -> float:
     if causal:
         masks[f"rows from {S - TILE} on seeing key i+1"] = allowed | (
             (i[None, :] == i[:, None] + 1) & (i[:, None] >= S - TILE))
+    masks = {what: (mask, softcap) for what, mask in masks.items()}
+    if softcap_control:
+        masks["softcap left out"] = (allowed, None)
     qt, kt, vt = (t.transpose(1, 2) for t in
                   (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+
+    def masked(mask, cap):
+        if cap is None:
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+        s = qt.float() @ kt.float().transpose(-1, -2) / q.shape[-1] ** 0.5
+        s = (torch.tanh(s / cap) * cap).masked_fill(~mask, -1e30)
+        return (torch.softmax(s, -1).to(vt.dtype) @ vt).to(q.dtype)
     controls = {}
-    for what, mask in masks.items():
-        wrong = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    for what, (mask, cap) in masks.items():
+        wrong = masked(mask, cap)
         controls[what] = tile_rel(wrong.transpose(1, 2), ref)
         del wrong
     del ref, qt, kt, vt
@@ -1233,11 +1342,14 @@ def phase_serve(name: str, args: list, kernel, layers: int,
         with cut_depth(arch, depth) as full_depth:
             res = serve.main(args + extra)
         eng = res["engine"]
-        if depth is not None and label == "rpc/stream":
+        if label == "rpc/stream":
             n = sum(t.numel() for t in tree_leaves(eng.params))
-            print(f"[serve] {arch} at full width cut to {depth} of "
-                  f"{full_depth} layers: {n} parameters (counted from the "
-                  f"tensors), {eng.acfg.train.compute_dtype}")
+            print(f"[serve] {arch} at full width "
+                  + (f"cut to {depth} of {full_depth} layers"
+                     if depth is not None else f"and depth ({full_depth} "
+                                               f"layers)")
+                  + f": {n} parameters (counted from the tensors), "
+                  f"{eng.acfg.train.compute_dtype}")
         ops = eng.op_seconds
         n_pre = len(ops["prefill"])
         prefills += n_pre
@@ -2327,6 +2439,11 @@ def main() -> int:
             jamba = (depth, attn_layers, served["direct"])
         del served
         _free()
+    served = phase_serve(name, ["--arch", GEMMA_ARCH] + SERVE_ARGS[2:],
+                         flash_attention, GEMMA_LAYERS)
+    by_path["serve_gemma2"] = served["launches"]
+    del served
+    _free()
     on_mesh = phase_mesh_serve(name, JAMBA_ARCH, jamba[0], jamba[2], "K3",
                                jamba[1], E2E_REL_TOL)
     by_path["serve_mesh_jamba"] = on_mesh["K3"]

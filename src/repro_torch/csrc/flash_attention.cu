@@ -27,33 +27,41 @@
 // - KV tiles wholly above the causal diagonal or outside the window are not
 //   visited; in _fa_kernel such a tile leaves (m, l, acc) unchanged, so the
 //   numbers are the same. Ragged q and kv edges are masked in the kernel.
-// - bf16, dh 64 and 128 (the serving path): Hopper's own design. One block
-//   of three warpgroups per (q tile of 128 rows, batch * head). A producer
-//   warpgroup, its registers lowered with setmaxnreg, has one thread issue
-//   TMA loads: Q once, then 128-key K and V tiles into a two-stage ring
-//   guarded by full / empty mbarriers, so the next tile is in flight while
-//   the current one computes. Two consumer warpgroups of 64 q rows each run
-//   S = Q K^T on wgmma (m64n128k16, both operands from shared memory), the
-//   online softmax on the accumulator registers, and O += P V on wgmma
-//   (m64n64k16) with P taken straight from the accumulators into the
-//   register A operand and V read MN-major through wgmma's transpose bit:
-//   P never goes through shared memory and V is never transposed. A group
-//   issues the next tile's S right behind this tile's P V, and the two
-//   groups take turns at the tensor cores through named barriers
-//   (FlashAttention-3's ping-pong), so that one group's softmax overlaps
-//   the other's products. The softmax keeps the running max on the raw
-//   logits and takes each probability as ex2 of one FMA (scale and
-//   log2(e) folded in). P is rounded to bf16 before it is normalized and
-//   l is summed in fp32 from the unrounded p, as on the mma.sync path.
-//   Tiles are loaded by 4-d tensor maps (dh, heads, S, batch) in the
-//   128-byte swizzle, so strided views are read as they are and rows past
-//   S arrive as zeros; O goes back through the Q tile's shared memory and
-//   one TMA store per 64-column block, which clips rows past Sq. Blocks
-//   are issued heaviest q tile first under a causal mask, with the G q
-//   heads of one kv head on neighbouring indices so that their K / V tiles
-//   are read from L2. Not done: TMA multicast over a cluster, a persistent
-//   grid (each block's Q load and O store are exposed; 1 block per SM).
-// - bf16, dh 16, 32 and 256: each warp owns 16 q rows of a 64-row tile and
+// - bf16, dh 64, 80, 112, 128 and 256 (every head dim a config of the
+//   registry uses): Hopper's own design. One block of three warpgroups
+//   per (q tile of 128 rows, batch * head). A producer warpgroup, its
+//   registers lowered with setmaxnreg, has one thread issue TMA loads: Q
+//   once, then K and V tiles (128 keys; 64 at dh 256, whose two stages of
+//   128 would not fit beside Q) into a two-stage ring guarded by full /
+//   empty mbarriers, so the next tile is in flight while the current one
+//   computes. Two consumer warpgroups of 64 q rows each run S = Q K^T on
+//   wgmma (m64n128k16, or m64n64k16 at dh 256, both operands from shared
+//   memory), the online softmax on the accumulator registers, and
+//   O += P V on wgmma (m64n64k16 a 64-column block of dh) with P taken
+//   straight from the accumulators into the register A operand and V read
+//   MN-major through wgmma's transpose bit: P never goes through shared
+//   memory and V is never transposed. A group issues the next tile's S
+//   right behind this tile's P V, and the two groups take turns at the
+//   tensor cores through named barriers (FlashAttention-3's ping-pong),
+//   so that one group's softmax overlaps the other's products. The
+//   softmax keeps the running max on the raw logits and takes each
+//   probability as ex2 of one FMA (scale and log2(e) folded in); a
+//   softcap takes tanh from ex2 and rcp. P is rounded to bf16 before it is
+//   normalized and l is summed in fp32 from the unrounded p, as on the
+//   mma.sync path. Tiles are loaded by 4-d tensor maps (dh, heads, S,
+//   batch) in the 128-byte swizzle, so strided views are read as they
+//   are and rows past S arrive as zeros; O goes back through the Q
+//   tile's shared memory and one TMA store per 64-column block, which
+//   clips rows past Sq. dh 80 and 112 are read unpadded: the maps' inner
+//   extent is the real dh, so TMA fills the last block's columns past dh
+//   with zeros and the store clips them, and the products skip them
+//   (Q K^T runs ceil(dh / 16) k-steps, the last block of P V runs at
+//   N = 16 or 48). Blocks are issued heaviest q tile first under a causal
+//   mask, with the G q heads of one kv head on neighbouring indices so
+//   that their K / V tiles are read from L2. Not done: TMA multicast over
+//   a cluster, a persistent grid (each block's Q load and O store are
+//   exposed; 1 block per SM).
+// - bf16, dh 16 and 32: each warp owns 16 q rows of a 64-row tile and
 //   runs both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
 //   fp32 accumulate). The score fragments are the A operand of P @ V, so
 //   probabilities go from accumulator registers straight back into the
@@ -462,15 +470,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, dh 64 / 128: Hopper's own path, wgmma fed by TMA
+// bf16, dh 64 / 80 / 112 / 128 / 256: Hopper's own path, wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBQ = 128;        // q rows per block, 64 per consumer group
-constexpr int kWgBK = 128;        // keys per KV tile
 constexpr int kWgStages = 2;      // KV tiles in flight
 constexpr int kWgThreads = 384;   // producer warpgroup + 2 consumer groups
 constexpr int kBox = 64;          // bf16 in one 128-byte swizzled row
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The tiles of one head dim's instance. A row of dh is stored as NB column
+// blocks of 64; where dh is not a multiple of 64 (80, 112) the last block's
+// columns past dh arrive from TMA as zeros and are never multiplied: Q K^T
+// takes KD = ceil(dh / 16) k-steps, and the last block of P V runs at
+// N = TAIL, so O holds dh / 2 accumulators a thread. dh 256 takes 64-key
+// KV tiles: two stages of 128-key K and V tiles (256 KB) beside the 64 KB
+// Q tile would not fit the 227 KB of shared memory.
+template <int DH>
+struct WgShape {
+  static constexpr int BK = DH > 128 ? 64 : 128;     // keys per KV tile
+  static constexpr int NB = (DH + kBox - 1) / kBox;  // 64-column blocks
+  static constexpr int KD = (DH + 15) / 16;          // k-steps of Q K^T
+  static constexpr int TAIL = DH - kBox * (NB - 1);  // N of the last block
+  static constexpr int SC = BK / 2;     // S accumulators a thread
+  static constexpr int PJ = BK / 16;    // k-steps of P V
+  static constexpr int OR = 32 * (NB - 1) + TAIL / 2;  // O accumulators
+  static_assert(TAIL % 16 == 0 && BK * NB * 128 % 1024 == 0, "tile shape");
+};
 
 struct WgParams {
   int B, Sq, Skv, H, G, n_qt;
@@ -479,13 +505,13 @@ struct WgParams {
 };
 
 // Shared memory: the Q tile (later the O tile), then per stage a K and a V
-// tile, each stored as DH / 64 column blocks of rows x 128 bytes in TMA's
+// tile, each stored as NB column blocks of rows x 128 bytes in TMA's
 // 128-byte swizzle (the canonical layout of wgmma's SW128 descriptors),
 // then the barriers. Every tile starts on a 1024-byte boundary.
 template <int DH>
 struct WgSmem {
-  static constexpr int kQ = kWgBQ * DH * 2;
-  static constexpr int kKV = kWgBK * DH * 2;
+  static constexpr int kQ = kWgBQ * WgShape<DH>::NB * 128;
+  static constexpr int kKV = WgShape<DH>::BK * WgShape<DH>::NB * 128;
   static constexpr int kBar = kQ + 2 * kWgStages * kKV;
   static constexpr int kBytes = kBar + 64 + 1024;   // + alignment slack
 };
@@ -498,6 +524,22 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh x = 1 - 2 r, r = 1 / (2^(2 x log2 e) + 1), on two MUFU ops, for
+// Gemma-2's softcap of 50 on every logit. Its error is at most about 2^-20
+// absolute (ex2's and rcp's relative errors, each near 2^-22, on the
+// term 2 r <= 2), so 50 * 2^-20 = 4.8e-5 in a logit where the cap binds;
+// tanh.approx.f32's relative 2^-11 would be up to 50 * 2^-11 = 0.024.
+// Against tanhf at Gemma-2's prefill shape, with logits at randn scale
+// and past the cap: the same per-tile error to 4 digits, 10 % less time
+// (tools/bench_k3.py; NVIDIA H100 80GB HBM3, 700 W)
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;"
+      : "=f"(r)
+      : "f"(ex2(2.885390081777927f * x) + 1.f));
+  return fmaf(-2.f, r, 1.f);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -532,7 +574,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 }
 
 // one box of a 4-d tensor map, coordinates innermost first (dh, head, seq,
-// batch); rows past the tensor's edge arrive as zeros
+// batch); rows past the tensor's edge, and columns past dh, arrive as
+// zeros, and the barrier counts the whole box
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1,
                                          int c2, int c3) {
@@ -544,7 +587,7 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// rows past the tensor's edge are not written
+// rows past the tensor's edge, and columns past dh, are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           const void* src, int c0, int c1,
                                           int c2, int c3) {
@@ -591,17 +634,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+template <int J>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[J][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
 
 // D(64 x 128) (+)= A(64 x 16, shared, K-major) * B(128 x 16, shared,
 // K-major)^T; bf16 in, fp32 accumulate; scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -631,11 +675,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D(64 x 64) += A(64 x 16, registers) * B(16 x 64, shared, MN-major:
-// the transpose bit set); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t db) {
+// the same at 64 keys: D(64 x 64) (+)= A(64 x 16) * B(64 x 16)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x N) += A(64 x 16, registers) * B(16 x N, shared, MN-major: the
+// transpose bit set); bf16 in, fp32 accumulate. N is 64, or the width
+// left in the last column block of dh 80 (16) and 112 (48).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -651,27 +717,63 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[24],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// column block c of O: 32 accumulators, or TAIL / 2 for the last block
+template <int N>
+__device__ __forceinline__ float (&o_block(float* o))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(o);
 }
 
 // S = Q K^T of tile `it` (stage it % kWgStages) into sc: waits for the
 // tile to land, issues and commits the products, does not wait for them.
-// q: this group's 64 rows of the Q tile.
+// q: this group's 64 rows of the Q tile. Only the k-steps that hold some
+// column below dh are issued.
 template <int DH>
-__device__ __forceinline__ void issue_s(float (&sc)[64],
+__device__ __forceinline__ void issue_s(float (&sc)[WgShape<DH>::SC],
                                         const unsigned char* q,
                                         const unsigned char* kv_s,
                                         uint32_t full0, int it) {
-  constexpr int KD = DH / 16;
+  using Sh = WgShape<DH>;
   const int s = it % kWgStages;
   mbar_wait(full0 + 8 * s, (it / kWgStages) & 1);
   const unsigned char* ks = kv_s + 2 * s * WgSmem<DH>::kKV;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
+  for (int kk = 0; kk < Sh::KD; ++kk) {
     const int c = kk / 4, off = (kk % 4) * 32;   // 16 bf16 = 32 bytes
-    wgmma_ss_n128(sc, sw128_desc(q + c * kWgBQ * 128 + off, 16, 1024),
-                  sw128_desc(ks + c * kWgBK * 128 + off, 16, 1024), kk > 0);
+    wgmma_ss(sc, sw128_desc(q + c * kWgBQ * 128 + off, 16, 1024),
+             sw128_desc(ks + c * Sh::BK * 128 + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -679,13 +781,14 @@ __device__ __forceinline__ void issue_s(float (&sc)[64],
 // Warp specialised: warpgroup 0 is the producer (one thread issues TMA:
 // the Q tile once, then K and V tiles into a 2-stage ring guarded by
 // full / empty mbarriers); warpgroups 1 and 2 each own 64 q rows and run
-// S = Q K^T (wgmma m64n128k16, both operands from shared memory), the
+// S = Q K^T (wgmma m64nBKk16, both operands from shared memory), the
 // online softmax on the accumulator registers, and O += P V (wgmma
-// m64n64k16 with P from registers and V MN-major through the transpose
-// bit). The accumulator fragment of S is, pair by pair, the register
-// fragment of P, so P never touches shared memory. Accumulator layout
-// (thread = 32 warp + 4 g + t of its group): S[4n + e] holds row
-// 16 warp + g (+ 8 for e >= 2), key 8n + 2t + (e & 1).
+// m64n64k16 a column block, m64nTAILk16 on the last, with P from
+// registers and V MN-major through the transpose bit). The accumulator
+// fragment of S is, pair by pair, the register fragment of P, so P never
+// touches shared memory. Accumulator layout (thread = 32 warp + 4 g + t
+// of its group): S[4n + e] holds row 16 warp + g (+ 8 for e >= 2), key
+// 8n + 2t + (e & 1); O[4n + e] the same row, column 8n + 2t + (e & 1).
 template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
     fa_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap tq,
@@ -694,9 +797,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       const __grid_constant__ CUtensorMap to,
                       const WgParams p) {
   using Sm = WgSmem<DH>;
-  constexpr int NB = DH / kBox;          // 128-byte column blocks of a row
+  using Sh = WgShape<DH>;
+  constexpr int BK = Sh::BK, NB = Sh::NB;
   constexpr int QB = kWgBQ * 128;        // bytes of one column block of Q
-  constexpr int KB = kWgBK * 128;        // ... of K or V
+  constexpr int KB = BK * 128;           // ... of K or V
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   unsigned char* smem =
       wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
@@ -716,8 +820,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   int k_lo = 0, k_hi = p.Skv;
   if (p.causal) k_hi = min(k_hi, q_last + 1);
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  const int t_lo = k_lo / kWgBK;
-  const int t_hi = k_hi > k_lo ? (k_hi + kWgBK - 1) / kWgBK : t_lo;
+  const int t_lo = k_lo / BK;
+  const int t_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : t_lo;
 
   const int tid = threadIdx.x, wg = tid / 128;
   if (tid == 0) {   // the tensor maps' descriptors, fetched ahead of use
@@ -746,10 +850,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_expect_tx(full0 + 8 * s, 2 * Sm::kKV);
         unsigned char* ks = kv_s + 2 * s * Sm::kKV;
         for (int c = 0; c < NB; ++c) {
-          tma_load(ks + c * KB, &tk, full0 + 8 * s, c * kBox, kvh,
-                   t * kWgBK, b);
+          tma_load(ks + c * KB, &tk, full0 + 8 * s, c * kBox, kvh, t * BK,
+                   b);
           tma_load(ks + Sm::kKV + c * KB, &tv, full0 + 8 * s, c * kBox, kvh,
-                   t * kWgBK, b);
+                   t * BK, b);
         }
       }
     }
@@ -764,19 +868,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int wrow_lo = q0 + 64 * w, wrow_hi = wrow_lo + 63;
   const float neg_inf = __int_as_float(0xff800000);
 
-  float o[NB][32];
+  float o[Sh::OR];
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  for (int i = 0; i < Sh::OR; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: partial sums
   const float sl2 = p.scale * kLog2e;    // logits to base-2 exponents
   mbar_wait(qbar, 0);
 
-  float sc[64];
-  uint32_t pa[8][4];    // P of the tile whose P V is in flight
+  float sc[Sh::SC];
+  uint32_t pa[Sh::PJ][4];   // P of the tile whose P V is in flight
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int i = 0; i < Sh::SC; ++i) sc[i] = 0.f;
 
   // Per tile: wait for S (and the previous tile's P V), softmax, issue
   // P V, then issue the next tile's S behind it, so that the tensor cores
@@ -791,124 +893,124 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     named_sync(3 + w);
     issue_s<DH>(sc, q_s + w * 64 * 128, kv_s, full0, 0);
     named_arrive(4 - w);
-  }
-  for (int it = 0; it < n_t; ++it) {
-    const int s = it % kWgStages;
-    wgmma_wait0();
-    fence_regs(sc);
-    fence_regs(pa);
-#pragma unroll
-    for (int c = 0; c < NB; ++c) fence_regs(o[c]);
-    if (it > 0 && ctid == 0)      // the previous tile's stage is free again
-      mbar_arrive(empty0 + 8 * ((it - 1) % kWgStages));
+    for (int it = 0; it < n_t; ++it) {
+      const int s = it % kWgStages;
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(pa);
+      fence_regs(o);
+      if (it > 0 && ctid == 0)    // the previous tile's stage is free again
+        mbar_arrive(empty0 + 8 * ((it - 1) % kWgStages));
 
-    // softcap and mask (only where the tile crosses an edge of this
-    // group's rows), then the running max on the raw logits: scale and
-    // log2(e) go into one FMA per exponent
-    const int kbase = (t_lo + it) * kWgBK;
-    const bool inside = kbase + kWgBK <= p.Skv &&
-                        (!p.causal || kbase + kWgBK - 1 <= wrow_lo) &&
-                        (p.window <= 0 || wrow_hi - kbase < p.window);
-    float mx0 = kNegInf, mx1 = kNegInf;
+      // softcap, then mask only where the tile crosses an edge of this
+      // group's rows, each a pass of its own behind one uniform branch
+      // (one fused pass that branched per element ran up to 6 % slower
+      // at the main paths' shapes); then the running max on the raw
+      // logits: scale and log2(e) go into one FMA per exponent
+      const int kbase = (t_lo + it) * BK;
+      const bool inside = kbase + BK <= p.Skv &&
+                          (!p.causal || kbase + BK - 1 <= wrow_lo) &&
+                          (p.window <= 0 || wrow_hi - kbase < p.window);
+      if (p.softcap > 0.f) {
+        const float in = p.scale / p.softcap, out = p.softcap / p.scale;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+        for (int i = 0; i < Sh::SC; ++i) sc[i] = tanh_ex2(sc[i] * in) * out;
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+      if (inside) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[4 * n + e];
-        if (p.softcap > 0.f)
-          x = tanhf(x * p.scale / p.softcap) * (p.softcap / p.scale);
-        if (!inside) {
-          const int qpos = e < 2 ? row0 : row1;
-          const int kpos = kbase + n * 8 + 2 * t4 + (e & 1);
+        for (int i = 0; i < Sh::SC; ++i) {
+          if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+          else mx0 = fmaxf(mx0, sc[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Sh::SC; ++i) {
+          const int qpos = (i & 2) ? row1 : row0;
+          const int kpos = kbase + (i / 4) * 8 + 2 * t4 + (i & 1);
           bool vis = kpos < p.Skv;
           if (p.causal) vis = vis && qpos >= kpos;
           if (p.window > 0) vis = vis && (qpos - kpos) < p.window;
-          x = vis ? x : neg_inf;
+          sc[i] = vis ? sc[i] : neg_inf;
         }
-        sc[4 * n + e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
+#pragma unroll
+        for (int i = 0; i < Sh::SC; ++i) {
+          if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+          else mx0 = fmaxf(mx0, sc[i]);
+        }
       }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = ex2((m0 - mn0) * sl2), al1 = ex2((m1 - mn1) * sl2);
-    const float b0 = -mn0 * sl2, b1 = -mn1 * sl2;
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = ex2((m0 - mn0) * sl2), al1 = ex2((m1 - mn1) * sl2);
+      const float b0 = -mn0 * sl2, b1 = -mn1 * sl2;
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = ex2(fmaf(sc[4 * n + e], sl2, e < 2 ? b0 : b1));
-        sc[4 * n + e] = pr;
-        if (e < 2) rs0 += pr;
-        else rs1 += pr;
+        for (int e = 0; e < 4; ++e) {
+          const float pr = ex2(fmaf(sc[4 * n + e], sl2, e < 2 ? b0 : b1));
+          sc[4 * n + e] = pr;
+          if (e < 2) rs0 += pr;
+          else rs1 += pr;
+        }
       }
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
+      l0 = l0 * al0 + rs0;
+      l1 = l1 * al1 + rs1;
 #pragma unroll
-    for (int c = 0; c < NB; ++c) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[c][4 * n + 0] *= al0;
-        o[c][4 * n + 1] *= al0;
-        o[c][4 * n + 2] *= al1;
-        o[c][4 * n + 3] *= al1;
-      }
-    }
+      for (int i = 0; i < Sh::OR; ++i) o[i] *= (i & 2) ? al1 : al0;
 
-    // P (rounded to bf16, unnormalized) @ V
+      // P (rounded to bf16, unnormalized) @ V
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-      pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-      pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-      pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+      for (int j = 0; j < Sh::PJ; ++j) {
+        pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+        pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+        pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+        pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+      }
+      const unsigned char* vs = kv_s + (2 * s + 1) * Sm::kKV;
+      named_sync(3 + w);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < Sh::PJ; ++j) {
+#pragma unroll
+        for (int c = 0; c < NB - 1; ++c)
+          wgmma_rs(o_block<kBox>(o + 32 * c), pa[j],
+                   sw128_desc(vs + c * KB + j * 16 * 128, KB, 1024));
+        wgmma_rs(o_block<Sh::TAIL>(o + 32 * (NB - 1)), pa[j],
+                 sw128_desc(vs + (NB - 1) * KB + j * 16 * 128, KB, 1024));
+      }
+      wgmma_commit();
+      if (it + 1 < n_t)
+        issue_s<DH>(sc, q_s + w * 64 * 128, kv_s, full0, it + 1);
+      named_arrive(4 - w);
     }
-    const unsigned char* vs = kv_s + (2 * s + 1) * Sm::kKV;
-    named_sync(3 + w);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < NB; ++c)
-        wgmma_rs_n64(o[c], pa[j][0], pa[j][1], pa[j][2], pa[j][3],
-                     sw128_desc(vs + c * KB + j * 16 * 128, KB, 1024));
-    }
-    wgmma_commit();
-    if (it + 1 < n_t)
-      issue_s<DH>(sc, q_s + w * 64 * 128, kv_s, full0, it + 1);
-    named_arrive(4 - w);
   }
   if (w == 0) named_sync(3);            // group 1's last turn
   wgmma_wait0();
   fence_regs(pa);
-#pragma unroll
-  for (int c = 0; c < NB; ++c) fence_regs(o[c]);
+  fence_regs(o);
 
   // O / max(l, 1e-30) in bf16, into this group's rows of the Q tile in the
   // same swizzled layout, then one TMA store per column block; rows past
-  // Sq are clipped by TMA. One reciprocal a row and a multiply an element:
-  // 64 fp32 divisions a thread cost more than a short tile's products,
-  // and take their slow path where l is tiny (a row that sees no key)
+  // Sq and columns past dh are clipped by TMA. One reciprocal a row and a
+  // multiply an element: 64 fp32 divisions a thread cost more than a
+  // short tile's products, and take their slow path where l is tiny (a
+  // row that sees no key)
   const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
   const int r0 = 16 * warp + g, r1 = r0 + 8;
 #pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    unsigned char* blk = q_s + c * QB + w * 64 * 128;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<uint32_t*>(blk + r0 * 128 + ((n ^ (r0 & 7)) << 4) +
-                                   4 * t4) =
-          pack_bf16(o[c][4 * n + 0] * d0, o[c][4 * n + 1] * d0);
-      *reinterpret_cast<uint32_t*>(blk + r1 * 128 + ((n ^ (r1 & 7)) << 4) +
-                                   4 * t4) =
-          pack_bf16(o[c][4 * n + 2] * d1, o[c][4 * n + 3] * d1);
-    }
+  for (int n = 0; n < Sh::OR / 4; ++n) {
+    unsigned char* blk = q_s + (n / 8) * QB + w * 64 * 128;
+    const int cn = n % 8;                // 16-byte chunk within the block
+    *reinterpret_cast<uint32_t*>(blk + r0 * 128 + ((cn ^ (r0 & 7)) << 4) +
+                                 4 * t4) =
+        pack_bf16(o[4 * n + 0] * d0, o[4 * n + 1] * d0);
+    *reinterpret_cast<uint32_t*>(blk + r1 * 128 + ((cn ^ (r1 & 7)) << 4) +
+                                 4 * t4) =
+        pack_bf16(o[4 * n + 2] * d1, o[4 * n + 3] * d1);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
@@ -985,9 +1087,9 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   if (!encode(fn, &tq, p.q, DH, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb,
               kWgBQ) ||
       !encode(fn, &tk, p.k, DH, p.KV, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb,
-              kWgBK) ||
+              WgShape<DH>::BK) ||
       !encode(fn, &tv, p.v, DH, p.KV, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb,
-              kWgBK) ||
+              WgShape<DH>::BK) ||
       !encode(fn, &to, p.o, DH, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb,
               kWgBQ / 2))
     return cudaErrorInvalidValue;
@@ -1012,17 +1114,19 @@ cudaError_t launch(Kernel kernel, int bq, int smem, const Params& p,
   return cudaGetLastError();
 }
 
-// path: 0 = SIMT fp32, 1 = mma.sync bf16, 2 = wgmma bf16 (dh 64 / 128)
+// path: 0 = SIMT fp32, 1 = mma.sync bf16 (dh 16 / 32), 2 = wgmma bf16
+// (dh 64 / 80 / 112 / 128 / 256)
 template <int DH>
 cudaError_t launch_dh(int dtype, int path, const Params& p,
                       cudaStream_t stream) {
   if (path == 0 && dtype == 0)
     return launch(fa_fwd_simt_f32<DH>, kBQ,
                   smem_floats<DH>() * (int)sizeof(float), p, stream);
-  if (path == 1 && dtype == 1)
-    return launch(fa_fwd_mma_bf16<DH>, kMmaBQ, mma_smem_bytes<DH>(), p,
-                  stream);
-  if constexpr (DH == 64 || DH == 128) {
+  if constexpr (DH <= 32) {
+    if (path == 1 && dtype == 1)
+      return launch(fa_fwd_mma_bf16<DH>, kMmaBQ, mma_smem_bytes<DH>(), p,
+                    stream);
+  } else {
     if (path == 2 && dtype == 1) return launch_wgmma<DH>(p, stream);
   }
   return cudaErrorInvalidValue;
@@ -1051,6 +1155,8 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
     case 16: return launch_dh<16>(dtype, path, p, s);
     case 32: return launch_dh<32>(dtype, path, p, s);
     case 64: return launch_dh<64>(dtype, path, p, s);
+    case 80: return launch_dh<80>(dtype, path, p, s);
+    case 112: return launch_dh<112>(dtype, path, p, s);
     case 128: return launch_dh<128>(dtype, path, p, s);
     case 256: return launch_dh<256>(dtype, path, p, s);
     default: return cudaErrorInvalidValue;

@@ -4,15 +4,15 @@
 On a CPU tensor it computes ``attention_plain``; on a CUDA tensor it
 launches the hand-written Hopper kernel (``csrc/flash_attention.cu``)
 or raises. The kernel has three paths, chosen by ``kernel_path`` from
-the dtype and head dim alone: wgmma fed by TMA (bf16, dh 64 / 128),
-mma.sync (other bf16 head dims) and SIMT (fp32). It is built for the
-head dims of ``_HEAD_DIMS``; any other dh up to 256 is zero-padded to
-the next of them (zero q and k columns leave q k^T unchanged, the scale
-stays 1/sqrt(dh) of the real dh, and v's padded columns are sliced off
-the output): hubert-xlarge's dh 80 and kimi-k2's 112 run as 128, in
-bf16 on wgmma, which takes them in well under half the time an mma.sync
-instance of their own took. The backward
-recomputes through ``attention_plain`` under autograd, as the
+the dtype and head dim alone: wgmma fed by TMA (bf16, dh 64, 80, 112,
+128 and 256: every head dim a config of the registry uses), mma.sync
+(bf16, dh 16 and 32) and SIMT (fp32). It is built for the head dims of
+``_HEAD_DIMS``; dh 80 and 112 are read unpadded (TMA fills the columns
+past dh with zeros in shared memory, and the products skip them). Any
+other dh up to 256 is zero-padded on the host to the next instance
+(zero q and k columns leave q k^T unchanged, the scale stays 1/sqrt(dh)
+of the real dh, and v's padded columns are sliced off the output). The
+backward recomputes through ``attention_plain`` under autograd, as the
 reference's custom VJP recomputes through ``attention_ref``; the
 forward kernel is what serving runs.
 """
@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims csrc/flash_attention.cu is instantiated for
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 #: the kernels of csrc/flash_attention.cu, by the code its C entry takes
 PATHS = {"simt": 0, "mma": 1, "wgmma": 2}
 
@@ -46,16 +46,17 @@ def padded_head_dim(dh: int) -> int:
 
 
 def kernel_path(dtype: torch.dtype, dh: int) -> str:
-    """The kernel that runs (dtype, dh): "wgmma" (bf16, dh 64 or 128:
-    wgmma fed by TMA), "mma" (bf16, other head dims: mma.sync) or
-    "simt" (fp32 on the CUDA cores; TF32 would miss the reference's
-    2e-5). dh is first padded to its instance (``padded_head_dim``: 48
-    runs as 64 and 80, 96 or 112 as 128, all on wgmma in bf16; 200 as
-    256 on mma). The choice depends on nothing else, and a launch the chosen
-    kernel refuses raises: no path stands in for another."""
+    """The kernel that runs (dtype, dh): "wgmma" (bf16, instances 64, 80,
+    112, 128 and 256: wgmma fed by TMA), "mma" (bf16, instances 16 and
+    32: mma.sync) or "simt" (fp32 on the CUDA cores; TF32 would miss the
+    reference's 2e-5). dh is first padded to its instance
+    (``padded_head_dim``: 48 runs as 64, 96 as 112, 200 as 256, all on
+    wgmma in bf16; 7 as 16 on mma). The choice depends on nothing else,
+    and a launch the chosen kernel refuses raises: no path stands in for
+    another."""
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if padded_head_dim(dh) in (64, 128) else "mma"
+    return "mma" if padded_head_dim(dh) <= 32 else "wgmma"
 
 
 _fa_fwd = None

@@ -101,16 +101,16 @@ def test_non_cpu_tensors_never_fall_back():
 PATH_TABLE = [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
-    (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 256, "simt"),
-    # other head dims run the next instance on zero-padded inputs:
-    # hubert-xlarge's 80 and kimi-k2's 112 as 128
+    # hubert-xlarge's 80 and kimi-k2's 112 are instances of their own;
+    # other head dims run the next instance on zero-padded inputs
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 112, "wgmma"),
     (torch.float32, 80, "simt"), (torch.float32, 112, "simt"),
     (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 96, "wgmma"),
-    (torch.bfloat16, 7, "mma"), (torch.bfloat16, 200, "mma"),
+    (torch.bfloat16, 7, "mma"), (torch.bfloat16, 200, "wgmma"),
     (torch.float32, 200, "simt"),
 ]
 
@@ -132,13 +132,15 @@ def test_cpu_calls_count_no_path():
 
 
 # hubert-xlarge (dh 80, 16 heads, kv 16, non-causal) and kimi-k2 (dh 112,
-# GQA) head dims, which the card runs padded to 128: the first is ROADMAP
-# Queue 3's minimal input
+# GQA) head dims, which the card reads unpadded: the first is ROADMAP
+# Queue 3's minimal input; then Gemma-2-9B's kind (dh 256, a window that
+# binds, softcap 50)
 HEAD_DIM_CASES = [
     (1, 256, 4, 2, 80, False, None, None),
     (2, 96, 4, 4, 80, True, None, None),
     (1, 128, 8, 1, 112, True, None, None),
     (1, 160, 4, 2, 112, False, 48, 30.0),
+    (1, 200, 4, 2, 256, True, 64, 50.0),
 ]
 
 
@@ -156,7 +158,7 @@ def test_head_dims_80_and_112_match_jax_kernel_and_ref(case):
                                    atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("dh", [48, 96, 7, 200, 80, 112])
+@pytest.mark.parametrize("dh", [48, 96, 7, 200, 40, 120])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_padded_head_dim_matches_unpadded_plain(dh, dtype):
     """The rule the card applies to a head dim without an instance: zero
@@ -191,6 +193,7 @@ def test_every_head_dim_up_to_256_has_an_instance():
         inst = ops.padded_head_dim(dh)
         assert inst in ops._HEAD_DIMS and inst >= dh
         assert all(i < dh for i in ops._HEAD_DIMS if i < inst)
-    assert ops.padded_head_dim(80) == ops.padded_head_dim(112) == 128
+    assert ops.padded_head_dim(80) == 80
+    assert ops.padded_head_dim(112) == 112
     with pytest.raises(ValueError, match="head dim 264"):
         ops.padded_head_dim(264)

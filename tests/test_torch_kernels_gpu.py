@@ -29,9 +29,11 @@ FA_CASES = [
     (1, 320, 6, 2, 64, True, 128, 30.0),
     (1, 77, 4, 2, 16, True, None, None),
     (1, 100, 2, 1, 256, False, 16, None),
-    # head dims without an instance, zero-padded to the next one:
-    # hubert-xlarge's dh 80 and kimi-k2's dh 112 (as 128), causal and
-    # not, GQA, then 48 (as 64) and 96 (as 128)
+    # Gemma-2's kind: dh 256, a window, softcap 50, GQA
+    (1, 300, 4, 2, 256, True, 100, 50.0),
+    # hubert-xlarge's dh 80 and kimi-k2's dh 112, read unpadded, causal
+    # and not, GQA; then head dims without an instance, zero-padded to
+    # the next one: 48 (as 64) and 96 (as 112)
     (1, 256, 4, 2, 80, False, None, None),
     (2, 200, 16, 16, 80, True, None, None),
     (1, 256, 8, 1, 112, True, None, None),
@@ -65,16 +67,21 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert flash_attention.launches_by_path[path] == on_path + 1
-    if dtype == "bfloat16" and dh in (64, 80, 112, 128):
+    if dtype == "bfloat16" and dh in (64, 80, 112, 128, 256):
         assert path == "wgmma"
     ref = attention_plain(q, k, v, causal, window, cap)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
-# the wgmma path (bf16, dh 64 / 128) at its edges: the Qwen3-8B prefill
-# shape, a length that is not a multiple of the 128-row tile, G = 1, 4 and
-# 8 q heads a kv head, non-causal, window with softcap
+# the wgmma path (bf16) at its edges: the Qwen3-8B prefill shape, a
+# length that is not a multiple of the 128-row tile, G = 1, 4 and 8 q
+# heads a kv head, non-causal, window with softcap; then the head dims
+# whose last column block is partial (80, 112) and dh 256's 64-key tiles
+# at a ragged length, G = 1 and 8, causal and not; then softcap 50 where
+# it binds, q scaled by the last number so that the scaled logits reach
+# +-30 and past 100 (at randn inputs they stay near +-1, where the softcap
+# changes nothing the tolerance sees), at dh 256, 128, 80 and 112
 WG_CASES = [
     (4, 512, 32, 8, 128, True, None, None),
     (1, 200, 8, 2, 128, True, None, None),
@@ -83,23 +90,44 @@ WG_CASES = [
     (1, 200, 8, 8, 128, False, None, None),
     (1, 320, 4, 1, 128, True, 100, 20.0),
     (2, 130, 8, 2, 64, True, 48, 30.0),
+    (1, 200, 8, 8, 80, True, None, None),
+    (2, 130, 4, 4, 80, False, None, None),
+    (1, 200, 8, 1, 112, True, None, None),
+    (2, 130, 8, 8, 112, False, 48, 30.0),
+    (1, 200, 8, 1, 256, True, None, 50.0),
+    (2, 130, 8, 8, 256, False, None, None),
+    (1, 200, 8, 1, 256, True, 100, 50.0, 30.0),
+    (2, 130, 8, 2, 128, True, None, 50.0, 30.0),
+    (1, 200, 8, 8, 80, False, None, 50.0, 30.0),
+    (2, 130, 8, 1, 112, True, 48, 50.0, 30.0),
 ]
 
 
 @pytest.mark.parametrize("case", WG_CASES)
 @pytest.mark.parametrize("fused", [False, True])
-def test_wgmma_path_matches_plain(cuda, case, fused):
-    B, S, H, KV, dh, causal, window, cap = case
+def test_wgmma_path_matches_plain(cuda, case, fused, monkeypatch):
+    """Fused: q, k and v are head slices of one projection, read in place
+    (dh 80 and 112 too: no pad copy), with the result of the same call
+    on contiguous copies. Where q is scaled, the same attention without
+    the softcap must miss the tolerance."""
+    from repro_torch.kernels.flash_attention import ops
+    B, S, H, KV, dh, causal, window, cap = case[:8]
+    q_scale = case[8] if len(case) > 8 else 1.0
     rng = np.random.default_rng(S + H)
     if fused:   # head slices of one (B, S, H + 2 KV, dh) projection
-        qkv = torch.from_numpy(rng.standard_normal(
-            (B, S, H + 2 * KV, dh)).astype(np.float32)).to(cuda,
-                                                            torch.bfloat16)
+        qkv = rng.standard_normal((B, S, H + 2 * KV, dh)).astype(np.float32)
+        qkv[:, :, :H] *= q_scale
+        qkv = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
         q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
     else:
         q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
-            np.float32)).to(cuda, torch.bfloat16)
-            for s in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh)))
+            np.float32) * scale).to(cuda, torch.bfloat16)
+            for s, scale in (((B, S, H, dh), q_scale), ((B, S, KV, dh), 1.0),
+                             ((B, S, KV, dh), 1.0)))
+
+    def no_pad(*args):
+        raise AssertionError(f"dh {dh} was padded on the host")
+    monkeypatch.setattr(ops, "padded", no_pad)
     before = flash_attention.launches_by_path["wgmma"]
     out = flash_attention(q, k, v, causal, window, cap)
     torch.cuda.synchronize()
@@ -107,6 +135,13 @@ def test_wgmma_path_matches_plain(cuda, case, fused):
     ref = attention_plain(q, k, v, causal, window, cap)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+    if q_scale != 1.0:
+        assert not torch.allclose(
+            attention_plain(q, k, v, causal, window, None).float(),
+            ref.float(), atol=2e-2, rtol=2e-2)
+    if fused:
+        assert torch.equal(out, flash_attention(
+            *(t.contiguous() for t in (q, k, v)), causal, window, cap))
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -513,7 +548,7 @@ def test_reduced_fp32_forward_on_the_card_matches_the_cpu(cuda, arch):
 def test_flash_per_shard_entry_on_a_1x1_mesh_is_the_direct_call(cuda, dh):
     """K3 through the per-shard entry (``flash_attention_sharded``, the
     mesh path's) on a 1 x 1 NCCL mesh: one launch on wgmma, the same
-    bits as the direct call (bf16; dh 80 runs padded to 128)."""
+    bits as the direct call (bf16; dh 80 read unpadded)."""
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention.ops import \

@@ -238,14 +238,11 @@ def _close_layer_states(tstates, jstates, period):
                 _close(st["mixer"][k], ref["mixer"][k])
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_and_mamba_models_prefill_and_decode_match_jax(arch):
-    """Reduced Mixtral (MoE, window), Jamba (Mamba + attention, MoE
-    every other layer) and Kimi-K2 (MoE, dh 112 reduced to 16): a
-    prompt of 70 (not a multiple of Mamba's chunk of 64) with room to
-    decode, then 4 greedy decode steps (MoE dropless), logits and every
-    layer's states against the reference's."""
-    jcfg, tcfg = jax_reduced(arch), get_reduced_config(arch)
+def _prefill_and_decode_match(jcfg, tcfg):
+    """A prompt of 70 (not a multiple of Mamba's chunk of 64, and past a
+    reduced window of 64) with room to decode, then 4 greedy decode
+    steps: logits and every layer's states against the reference's.
+    Returns the port's states after the last step."""
     jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
     tp = from_jax_params(_np(jp))
     period = tcfg.model.pattern_period
@@ -268,6 +265,31 @@ def test_moe_and_mamba_models_prefill_and_decode_match_jax(arch):
                                    torch.from_numpy(tok)[:, None])
         _close(tlogits, jlogits)
     _close_layer_states(tstates, jstates, period)
+    return tstates
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_mamba_models_prefill_and_decode_match_jax(arch):
+    """Reduced Mixtral (MoE, window), Jamba (Mamba + attention, MoE
+    every other layer) and Kimi-K2 (MoE, dh 112 reduced to 16), MoE
+    dropless."""
+    _prefill_and_decode_match(jax_reduced(arch), get_reduced_config(arch))
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_gemma2_prefill_and_decode_match_jax(use_flash):
+    """Reduced Gemma-2-9B (local window 64 and global layers alternating,
+    attention softcap 50, final logit softcap 30, tied embeddings, GeGLU)
+    with the flash path off and on (the reference's Pallas kernel in
+    interpret mode): the 70-token prompt wraps the local layer's ring
+    cache of 64, the global layer's cache holds every position."""
+    jcfg, tcfg = jax_reduced("gemma2-9b"), get_reduced_config("gemma2-9b")
+    jcfg, tcfg = (c.replace(train=dataclasses.replace(
+        c.train, use_flash_kernel=use_flash)) for c in (jcfg, tcfg))
+    assert tcfg.model.window_pattern == (64, None)
+    states = _prefill_and_decode_match(jcfg, tcfg)
+    assert [st["mixer"].k.shape[1] for st in states] == \
+        [64, 70 + DECODE_STEPS + 2]
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])

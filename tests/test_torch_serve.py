@@ -281,3 +281,17 @@ def test_moe_cli_serves_on_the_cpu(arch):
         capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert sum("sample=" in line for line in r.stdout.splitlines()) == 2
+
+
+def test_gemma2_cli_serves_on_the_cpu():
+    """Gemma-2-9B reduced (local window 64 / global, softcaps): a 70-token
+    prompt wraps the local layers' ring caches before decoding."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2-9b", "--reduced", "--device", "cpu", "--batch", "2",
+         "--prompt-len", "70", "--new-tokens", "4", "--requests", "2"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert sum("sample=" in line for line in r.stdout.splitlines()) == 2
