@@ -125,6 +125,16 @@ Phases (any failure raises, and the script exits non-zero):
    after [cluster], the step after [train]'s); compute and memory
    terms, the dominant one, the model's FLOPs, the share of the plain
    program's time that its bound is, and K3's speed-up over plain;
+9d. the dry run's peak memory against the card's (``[memory]``):
+   ``launch/dryrun.py``'s count on fake tensors of the plain Qwen3-8B
+   [train] step (4 layers, seq 4096, batch 2, K3 off, the program the
+   dry run counts), with no mesh in this process and with fsdp on a fake
+   1 x 1 mesh in a child process (a fake group cannot share a process
+   with NCCL), each beside the card's peak over one call of the same
+   plain step: [train]'s no-mesh one (``step_breakdown``) and one over
+   [mesh]'s 1 x 1 NCCL mesh; the two within 15 % of each other, and the
+   count the dry run gave before it kept to the stand-ins' device
+   printed beside them;
 10. the TF-gRPC-Bench suite through ``repro_torch.launch.bench_comm``:
    p2p_latency, p2p_bandwidth and ps_throughput in both modes with the
    default payload and with ``--arch qwen3-8b``, and fully_connected on
@@ -404,6 +414,14 @@ MESH_STEPS, MESH_MIXTRAL_STEPS = 3, 1
 # 1024, batch 2, through the plain chunked scan (K4 has no backward)
 RWKV_LAYERS, JAMBA_ARCH = 24, "jamba-1.5-large-398b"
 RWKV_MESH_LAYERS, RWKV_MESH_SEQ, RWKV_MESH_STEPS = 2, 1024, 3
+# The dry run's peak against the card's (``[memory]``): the plain [train]
+# step of Qwen3-8B (K3 off, as the dry run counts it), with no mesh and
+# over the 1 x 1 mesh with fsdp; each count within MEMORY_REL_TOL of the
+# card's peak over one call of that step. The card's peaks are kept here
+# by the phases that run the step ([train]'s ``step_breakdown``, [mesh]),
+# keyed (model, layers, mesh).
+MEMORY_REL_TOL = 0.15
+PLAIN_PEAKS: dict = {}
 # device kernels by kind, for [profile] (first match wins): the port's own
 # kernels, cuBLAS / CUTLASS products, PyTorch's indexed gathers and
 # scatters (the collective transport's row permutations, embeddings),
@@ -1901,7 +1919,8 @@ def phase_train(name: str, arch: str, layers, batch_size: int, n_steps: int,
 
 def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
                train_ms, *, seq: int = TRAIN_SEQ, grad: str = "wq",
-               flash_per_layer: int = 2, **parallel) -> dict:
+               flash_per_layer: int = 2, plain_peak: bool = False,
+               **parallel) -> dict:
     """``arch`` at full width cut to ``layers`` layers, trained with
     ``--ps-mode`` (and the ``parallel`` knobs) at ``seq`` through a
     1 x 1 NCCL mesh: step 0's loss, gradient norm and layer
@@ -1911,8 +1930,11 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
     counted per step (``flash_per_layer`` a layer, all wgmma) and K4 not
     at all (it has no backward), ms a step beside ``train_ms`` (the
     no-mesh step's; where None, a no-mesh Trainer's same steps, run
-    first) and the peak. Returns K3's and K4's launches on the main
-    path."""
+    first) and the peak. With ``plain_peak``, before the Trainer's steps,
+    one call of the plain train step (K3 off, the program the dry run
+    counts) on fresh state over the mesh, its card peak kept in
+    ``PLAIN_PEAKS`` for [memory]. Returns K3's and K4's launches on the
+    main path."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1999,6 +2021,19 @@ def phase_mesh(name: str, arch: str, layers: int, n_steps: int,
         if any(g > b for g, b in zip(got, bounds)):
             raise AssertionError(f"{what} step 0 vs no mesh: {got} beyond "
                                  f"{bounds}")
+        if plain_peak:
+            step = steps.make_train_step(acfg.replace(
+                train=dataclasses.replace(acfg.train,
+                                          use_flash_kernel=False)), ctx)
+            params, opt, _ = trainer.init_state(0)
+            batch = device_batch(host, "cuda", ctx)
+            base = step_base(params, opt, batch)
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            PLAIN_PEAKS[(arch, layers, "1x1")] = \
+                torch.cuda.max_memory_allocated() - base
+            del params, opt, batch, out
+            _free()
 
         per_step = []
         trainer.fault_hook = lambda step: per_step.append(
@@ -2239,10 +2274,128 @@ def phase_roofline(name: str, prefill_ms: tuple, train_ms: tuple) -> None:
             raise AssertionError(f"[roofline] {label}: {rf.to_dict()}")
 
 
+def arg_bytes(*trees) -> int:
+    """Bytes of the distinct storages of the tensors in ``trees`` (a
+    DTensor's: its local shard's)."""
+    from torch.utils._pytree import tree_leaves
+    seen = {}
+    for t in tree_leaves(trees):
+        if isinstance(t, torch.Tensor):
+            st = getattr(t, "_local_tensor", t).untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def step_base(params, opt, batch) -> int:
+    """Resets the card's peak and returns what is allocated besides a
+    step's arguments: the card's peak over the step is then
+    ``max_memory_allocated()`` less this, the arguments counted in, as
+    the dry run counts them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() - arg_bytes(params, opt, batch)
+
+
+def _like_with_stand_in(like):
+    """``optimizer._like`` as it was before the dry run kept to the
+    stand-ins' device: a ``meta`` stand-in at the global shape, made
+    only to read its stride."""
+    def old(t, ref, placements=None, shape=None):
+        if hasattr(ref, "device_mesh"):
+            torch.empty(tuple(ref.shape) if shape is None else tuple(shape),
+                        device="meta").stride()
+        return like(t, ref, placements, shape)
+    return old
+
+
+def dry_count(mesh: bool) -> dict:
+    """The dry run's count (``launch/dryrun.py``: fake tensors on the
+    host, ``MemTracker``) of the plain [train] step, Qwen3-8B 4 layers,
+    seq 4096, batch 2: with no mesh, or with fsdp on a fake 1 x 1 mesh
+    (which must be the process's only group). ``peak`` is what the dry
+    run reports, the peak of the stand-ins' device; ``old`` what it
+    reported before: the same step with ``optimizer._like`` making its
+    ``meta`` stand-in, every device's peak summed."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_config
+    from repro_torch.optim import optimizer as O
+    from repro_torch.parallel.sharding import NO_MESH, make_ctx
+    acfg = train_config(ARCH, reduced=False, device="cuda", ps_mode=mesh)
+    acfg = acfg.replace(model=dataclasses.replace(acfg.model,
+                                                  num_layers=TRAIN_LAYERS))
+    ctx = NO_MESH
+    if mesh:
+        from repro_torch.launch.mesh import make_test_mesh
+        logging.getLogger("torch.distributed.tensor._redistribute"
+                          ).setLevel(logging.ERROR)
+        ctx = make_ctx(acfg, make_test_mesh(1, 1, fake=True))
+    shape = train_shape(TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    ma = dryrun.dry_run(ctx, acfg, shape)["memory_analysis"]
+    like = O._like
+    O._like = _like_with_stand_in(like)
+    try:
+        was = dryrun.dry_run(ctx, acfg, shape)["memory_analysis"]
+    finally:
+        O._like = like
+    return {"peak": ma["peak_memory_in_bytes"],
+            "args": ma["argument_size_in_bytes"],
+            "other_devices": ma["other_devices"],
+            "old": was["peak_memory_in_bytes"] + sum(
+                d["Total"] for d in was["other_devices"].values()),
+            "s": time.perf_counter() - t0}
+
+
+def phase_memory(name: str) -> None:
+    """The dry run's peak of the plain Qwen3-8B [train] step beside the
+    card's peak over one call of that step (``PLAIN_PEAKS``), with no
+    mesh (counted here) and over the 1 x 1 mesh with fsdp (counted on a
+    fake mesh in a child process): both in GiB, their ratio and the old
+    count; fails where a pair differs by more than MEMORY_REL_TOL of the
+    card's."""
+    child = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-count-1x1"],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        counts = {"none": dry_count(False)}
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    if child.returncode:
+        raise AssertionError(f"[memory] the 1x1 count: rc "
+                             f"{child.returncode}: {err[-2000:]}")
+    counts["1x1"] = json.loads(out.strip().splitlines()[-1])
+    gib, bad = 2**30, []
+    for mesh, label in (("none", "no mesh"), ("1x1", "the 1x1 mesh, fsdp")):
+        c = counts[mesh]
+        card_b = PLAIN_PEAKS[(ARCH, TRAIN_LAYERS, mesh)]
+        ratio = c["peak"] / card_b
+        print(f"[memory] Qwen3-8B {TRAIN_LAYERS} layers plain train step "
+              f"(seq {TRAIN_SEQ}, batch {TRAIN_BATCH}, K3 off), {label}: "
+              f"dry run {c['peak']} B = {c['peak'] / gib:.3f} GiB (CPU "
+              f"count, arguments {c['args'] / gib:.3f} GiB, other devices "
+              f"{c['other_devices']}; counted in {c['s']:.1f} s), card "
+              f"{card_b} B = {card_b / gib:.3f} GiB, dry run / card "
+              f"{ratio:.5f} (bound {MEMORY_REL_TOL}); the old count, meta "
+              f"summed in, {c['old']} B = {c['old'] / gib:.3f} GiB "
+              f"({c['old'] / card_b:.5f} of the card's) on {name}")
+        if abs(c["peak"] - card_b) > MEMORY_REL_TOL * card_b:
+            bad.append((label, c["peak"], card_b))
+    if bad:
+        raise AssertionError(f"[memory] the dry run's peak against the "
+                             f"card's beyond {MEMORY_REL_TOL}: {bad}")
+
+
 def step_breakdown(name: str, acfg, shape, trainer, params, opt,
                    step: int) -> tuple:
     """One more step outside the counted run (data of ``step``): its two
-    halves on CUDA events, the same step on the plain path (K3 off), then
+    halves on CUDA events, the same step on the plain path (K3 off), with
+    the card's peak over it kept in ``PLAIN_PEAKS`` (``step_base``), then
     the whole step under the profiler. Returns the step's ms on the
     events: (as configured, plain)."""
     import dataclasses
@@ -2257,6 +2410,7 @@ def step_breakdown(name: str, acfg, shape, trainer, params, opt,
         cfg = acfg.replace(train=dataclasses.replace(
             acfg.train, use_flash_kernel=flash))
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        base = step_base(params, opt, batch)
         events[0].record()
         metrics, grads = steps.loss_and_grads(steps.make_loss_fn(cfg),
                                               params, batch)
@@ -2265,6 +2419,9 @@ def step_breakdown(name: str, acfg, shape, trainer, params, opt,
             updated = O.apply_updates(cfg.train, params, grads, opt)
         events[2].record()
         torch.cuda.synchronize()
+        if not flash:
+            PLAIN_PEAKS[(acfg.model.name, acfg.model.num_layers, "none")] = \
+                torch.cuda.max_memory_allocated() - base
         total.append(events[0].elapsed_time(events[2]))
         print(f"[train] {what}, one step's halves on CUDA events"
               f"{'' if flash else ', plain'}: loss and gradients "
@@ -2458,7 +2615,7 @@ def main() -> int:
         name, MIXTRAL_ARCH, MIXTRAL_LAYERS, TRAIN_BATCH, MIXTRAL_STEPS,
         MIXTRAL_BOUNDS, wq_layer=0)
     by_path["train_mesh"] = phase_mesh(name, ARCH, TRAIN_LAYERS, MESH_STEPS,
-                                       train_ms)["K3"]
+                                       train_ms, plain_peak=True)["K3"]
     by_path["train_mesh_mixtral"] = phase_mesh(
         name, MIXTRAL_ARCH, MIXTRAL_LAYERS, MESH_MIXTRAL_STEPS, mixtral_ms,
         expert_sharding="ep")["K3"]
@@ -2468,6 +2625,7 @@ def main() -> int:
     by_path["train_mesh_rwkv"] = on_mesh["K3"]
     wkv_by_path["train_mesh_rwkv"] = on_mesh["K4"]
     phase_roofline(name, prefill_ms, train_device_ms)
+    phase_memory(name)
     kernel["launches_by_main_path"] = by_path
     kernel["launches"] = sum(by_path.values())
     wkv["launches_by_main_path"] = wkv_by_path
@@ -2491,4 +2649,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dry-count-1x1"]:     # [memory]'s child process
+        sys.path.insert(0, str(SRC))
+        print(json.dumps(dry_count(True)))
+        sys.exit(0)
     sys.exit(main())

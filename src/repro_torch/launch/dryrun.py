@@ -19,9 +19,12 @@ The result keeps the reference's keys where they apply:
 per device, as ``roofline.Counter`` counts them: eager, unfused bytes),
 ``collectives`` (the reference's ``collectives_full_hlo``: the
 ``CollectiveStats.summary()`` of the c10d ops the step ran),
-``analytic_bytes_per_device`` and ``memory_analysis`` (the peak of what
-``MemTracker`` saw this rank hold: the arguments and everything the
-step made). The reference's ``while_trip_counts`` and ``overlap`` have
+``analytic_bytes_per_device`` and ``memory_analysis``: the peak of
+what ``MemTracker`` saw this rank hold on the stand-ins' device (the
+arguments and everything the step made there), its bytes by kind, and
+under ``other_devices`` anything the tracker saw elsewhere (``meta``),
+which no total counts, as XLA's count holds device buffers only. The
+reference's ``while_trip_counts`` and ``overlap`` have
 no counterpart: Python runs every loop trip itself, so there is no
 ``while`` to count, and eager collectives are calls in program order,
 with no asynchronous start / done pairs in a schedule to read. Its
@@ -151,12 +154,13 @@ def _locals(tree):
             for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
-def dry_run(ctx: ParallelCtx, acfg: ArchConfig, shape: ShapeSpec
-            ) -> Dict[str, Any]:
+def dry_run(ctx: ParallelCtx, acfg: ArchConfig, shape: ShapeSpec,
+            tracker=None) -> Dict[str, Any]:
     """One cell on ``ctx``'s mesh (a fake group's, or none): its step on
     fake stand-ins under the counters. Returns ``cost_analysis``,
     ``collectives``, ``memory_analysis`` and ``run_s``. The kernels stay
-    off (no dispatch mode sees a ``ctypes`` launch)."""
+    off (no dispatch mode sees a ``ctypes`` launch). ``tracker`` is the
+    ``MemTracker`` to count with (a new one by default)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     acfg = acfg.replace(train=dataclasses.replace(
@@ -165,7 +169,7 @@ def dry_run(ctx: ParallelCtx, acfg: ArchConfig, shape: ShapeSpec
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = lay_out(ctx, acfg, shape)
         step = make_step(ctx, acfg, shape)
-        mt = MemTracker()
+        mt = MemTracker() if tracker is None else tracker
         arg_locals = _locals(args)
         mt.track_external(*arg_locals)
         t0 = time.time()
@@ -176,14 +180,32 @@ def dry_run(ctx: ParallelCtx, acfg: ArchConfig, shape: ShapeSpec
     out["cost_analysis"] = {"flops": cost.flops,
                             "bytes accessed": cost.bytes_accessed}
     out["collectives"] = cost.collectives.summary()
-    out["memory_analysis"] = {
+    out["memory_analysis"] = memory_analysis(peak, arg_locals)
+    return out
+
+
+def _kinds(snapshot) -> Dict[str, int]:
+    return {getattr(k, "name", k): int(v) for k, v in snapshot.items()
+            if k != "Total"}
+
+
+def memory_analysis(peak, arg_locals) -> Dict[str, Any]:
+    """The reference's ``memory_analysis`` keys from ``MemTracker``'s
+    peak snapshot: the peak of the device the stand-ins live on, its
+    bytes by kind (``PARAM``, ``ACT``, ``TEMP``, ``OPT``, ...), and the
+    argument bytes. Any other device the tracker saw (a ``meta`` tensor
+    made for its metadata) is listed under ``other_devices`` and counted
+    in no total: XLA's count has device buffers only."""
+    device = arg_locals[0].device
+    mine = peak.get(device, {"Total": 0})
+    return {
         "available": True,
-        "peak_memory_in_bytes": int(sum(d["Total"] for d in peak.values())),
+        "peak_memory_in_bytes": int(mine["Total"]),
         "argument_size_in_bytes": int(sum(
             t.numel() * t.element_size() for t in arg_locals)),
-        "by_kind": {str(k): int(v) for d in peak.values()
-                    for k, v in d.items() if k != "Total"}}
-    return out
+        "by_kind": _kinds(mine),
+        "other_devices": {str(d): dict(_kinds(s), Total=int(s["Total"]))
+                          for d, s in peak.items() if d != device}}
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,

@@ -21,7 +21,7 @@ means and its update RMS.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,18 +90,28 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    """The stride of a contiguous tensor of ``shape``, as torch gives it
+    (a dim of size 0 steps as one of size 1), with no tensor made."""
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(stride))
+
+
 def _like(t: torch.Tensor, ref, placements=None, shape=None):
     """The local tensor ``t`` as a DTensor laid out as ``ref`` (or on
     ``placements`` with global ``shape``); ``t`` itself when ``ref`` is a
-    plain tensor."""
+    plain tensor. Allocates nothing: a stand-in made only to read its
+    stride would count as memory under a tracker."""
     if not isinstance(ref, DTensor):
         return t
     placements = tuple(ref.placements) if placements is None else placements
     shape = tuple(ref.shape) if shape is None else tuple(shape)
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(t, ref.device_mesh, placements,
                               run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+                              stride=_contiguous_stride(shape))
 
 
 def _reduce(t: torch.Tensor, ref, dims=None, op=dist.ReduceOp.SUM):
