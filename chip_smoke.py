@@ -55,6 +55,18 @@ Phases (any failure raises, and the script exits non-zero):
    scheduler_least_loaded: every worker's tokens must equal the direct
    path's, with 36 wgmma flash launches a prefill and the dispatch
    counts per link the policy gives;
+5b. temperature sampling (``[sample]``), JAX's key chain and Gumbel-max
+   in the port (``core/prng.py``): the chain from seed 0, 8 splits deep,
+   against constants that a CPU test derives from ``jax.random``, each
+   split hashed on the card against the host's; the noise at (4,
+   151936), Qwen3-8B's vocabulary, on the card against the CPU's (random
+   bits equal, bf16 within one ulp, fp32 within 2e-6); 65,536 draws of
+   16-way fp32 logits against softmax(logits / T) by chi-square; the
+   sampler's ms and kernel launches a draw beside [serve]'s decode step,
+   and beside torch's own sampler (fp32 softmax and ``torch.multinomial``)
+   on the same logits, in turns; then Qwen3-8B served whole through the
+   serve CLI at ``--temperature 0.8`` the three ways: tokens identical,
+   some unlike [serve]'s greedy ones, 36 wgmma flash launches a prefill;
 6. end to end, kernel vs plain: last-position logits of the same
    prompts with the flash kernel on and off (bf16, Qwen3-8B), two
    controls (the kernel with a window that drops keys, and with the
@@ -322,6 +334,25 @@ MOE_SERVE = (("mixtral-8x7b", 8, 8), ("jamba-1.5-large-398b", 5, 1),
 # 18.5 GB in bf16, so nothing is cut. K3 launches once a layer a prefill,
 # at dh 256 on wgmma.
 GEMMA_ARCH, GEMMA_LAYERS = "gemma2-9b", 42
+# [sample]: Qwen3-8B served whole at this temperature through the serve
+# CLI, which samples with JAX's key chain and Gumbel-max
+# (``core/prng.py``). SAMPLE_CHAIN is that chain's draw keys from seed 0,
+# 8 splits deep (``key, sub = split(key)``; tests/test_torch_sampling.py
+# derives them from ``jax.random``). The noise on the card is held
+# against the port's own on the CPU at (BATCH, Qwen3's vocabulary):
+# random bits equal, bf16 Gumbel noise equal or one bf16 ulp apart, fp32
+# within SAMPLE_F32_TOL (the two devices' fp32 ``log`` may round apart).
+# SAMPLE_DRAWS draws of one key from fixed 16-way fp32 logits must pass
+# a chi-square test against softmax(logits / T): 15 degrees of freedom,
+# bound at p = 0.001.
+SAMPLE_TEMPERATURE = 0.8
+SAMPLE_CHAIN = ((928981903, 3453687069), (1353695780, 2116000888),
+                (3531307783, 465290248), (1539457558, 118255239),
+                (4274742258, 3380111416), (1093704277, 2843913905),
+                (3905300018, 1047965080), (3381965182, 2262451415))
+SAMPLE_VOCAB = 151936
+SAMPLE_F32_TOL = 2e-6
+SAMPLE_DRAWS, SAMPLE_WAYS, SAMPLE_CHI2_BOUND = 65536, 16, 37.697
 # payload pack / unpack: the reference's kernel-test sizes (aligned, and
 # lists drawn as its hypothesis property draws them), the unaligned
 # sizes serialization hands the kernels, and the endpoint rows of the
@@ -1337,7 +1368,8 @@ def phase_serve(name: str, args: list, kernel, layers: int,
     layers where given (``cut_depth``). Returns ``kernel``'s launches,
     which must be ``layers`` per prefill ("launches"), the direct path's
     engine ("engine", its weights reused by [cluster]) and its tokens
-    ("direct", one (BATCH, NEW_TOKENS) array a request)."""
+    ("direct", one (BATCH, NEW_TOKENS) array a request) and the direct
+    path's ms a decode step ("decode_ms")."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -1385,6 +1417,7 @@ def phase_serve(name: str, args: list, kernel, layers: int,
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"on {name}")
         outputs[label] = res["outputs"]
+        decode_ms = 1e3 * sum(ops["decode"]) / len(ops["decode"])
         kept = eng
         del res, eng, ops
         _free()        # the engine and its schedulers refer to each other
@@ -1399,7 +1432,9 @@ def phase_serve(name: str, args: list, kernel, layers: int,
         for a, b in zip(outs, outputs["direct"]):
             if not (a == b).all():
                 raise AssertionError(f"{label} tokens differ from direct")
-    print(f"[serve] {arch} greedy tokens identical across stream / unary / "
+    how = (f"sampled (T {args[args.index('--temperature') + 1]})"
+           if "--temperature" in args else "greedy")
+    print(f"[serve] {arch} {how} tokens identical across stream / unary / "
           f"direct; request 0 row 0: {outputs['direct'][0][0][:8].tolist()}")
     if launches[kernel.__name__] != layers * prefills or any(
             n for k, n in launches.items() if k != kernel.__name__):
@@ -1413,7 +1448,120 @@ def phase_serve(name: str, args: list, kernel, layers: int,
           f"{launches[kernel.__name__]} = {layers} x {prefills} prefills "
           f"(all launches: {launches}; flash by path: {by_path})")
     return {"launches": launches[kernel.__name__], "engine": kept,
-            "direct": outputs["direct"]}
+            "direct": outputs["direct"], "decode_ms": decode_ms}
+
+
+def phase_sample(name: str, greedy: list, decode_ms: float) -> int:
+    """Temperature sampling, JAX's key chain and Gumbel-max
+    (``core/prng.py``): the chain from seed 0 against SAMPLE_CHAIN and
+    its hash on the card against the host's; the noise at (BATCH,
+    SAMPLE_VOCAB) on the card against the CPU's; a chi-square test of
+    SAMPLE_DRAWS draws; the sampler's ms and kernel launches a draw
+    beside [serve]'s decode step, and its ms in turns with torch's own
+    sampler (fp32 softmax and ``torch.multinomial``) on the same logits;
+    then the main path, Qwen3-8B served whole at SAMPLE_TEMPERATURE three
+    ways (``phase_serve``): tokens identical, some unlike [serve]'s
+    greedy ones (``greedy``), 36 wgmma K3 launches a prefill. Returns
+    K3's launches."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    key, subs = prng.prng_key(0), []
+    for _ in SAMPLE_CHAIN:
+        counters = torch.arange(2, dtype=torch.int64, device=dev)
+        a, b = prng.threefry2x32(key[0], key[1], counters >> 32, counters)
+        on_card = tuple(zip(a.tolist(), b.tolist()))
+        key, sub = prng.split(key)
+        if on_card != (key, sub):
+            raise AssertionError(f"[sample] split on the card {on_card}, "
+                                 f"on the host {(key, sub)}")
+        subs.append(sub)
+    if tuple(subs) != SAMPLE_CHAIN:
+        raise AssertionError(f"[sample] key chain {subs} is not JAX's "
+                             f"{SAMPLE_CHAIN}")
+    print(f"[sample] key chain from seed 0, {len(subs)} splits: equals "
+          f"JAX's (SAMPLE_CHAIN); each split hashed on the card equals "
+          f"the host's")
+
+    shape = (BATCH, SAMPLE_VOCAB)
+    for width in (8, 32):
+        if not torch.equal(prng.random_bits(subs[0], width, shape,
+                                            dev).cpu(),
+                           prng.random_bits(subs[0], width, shape)):
+            raise AssertionError(f"[sample] {width}-bit random bits on "
+                                 f"the card differ from the CPU's")
+    ulps = prng.bf16_ulps(prng.gumbel(subs[0], shape, torch.bfloat16, dev),
+                     prng.gumbel(subs[0], shape, torch.bfloat16))
+    f32 = (prng.gumbel(subs[0], shape, torch.float32, dev).cpu()
+           - prng.gumbel(subs[0], shape, torch.float32)).abs()
+    print(f"[sample] noise at {shape}, card vs CPU: 8- and 32-bit random "
+          f"bits equal; bf16 Gumbel {int((ulps > 0).sum())} of "
+          f"{ulps.numel()} values apart, at most {ulps.max().item():.0f} "
+          f"ulp (bound 1); fp32 Gumbel max|diff| {f32.max().item():.3g} "
+          f"(bound {SAMPLE_F32_TOL:g}), {int((f32 > 0).sum())} values "
+          f"apart")
+    if ulps.max().item() > 1 or f32.max().item() > SAMPLE_F32_TOL:
+        raise AssertionError("[sample] noise on the card is not the CPU's")
+
+    logits = (torch.randn(SAMPLE_WAYS, generator=torch.Generator()
+                          .manual_seed(0)) * 1.5).to(dev)
+    chi2 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = logits.to(dtype) / torch.tensor(SAMPLE_TEMPERATURE, dtype=dtype,
+                                             device=dev)
+        draws = prng.categorical(subs[1], lg.expand(SAMPLE_DRAWS, -1))
+        seen = torch.bincount(draws, minlength=SAMPLE_WAYS).double()
+        want = SAMPLE_DRAWS * torch.softmax(lg.double(), -1)
+        chi2[dtype] = ((seen - want) ** 2 / want).sum().item()
+    print(f"[sample] {SAMPLE_DRAWS} draws of 16-way fp32 logits at T "
+          f"{SAMPLE_TEMPERATURE}: chi-square {chi2[torch.float32]:.2f} "
+          f"(15 dof, bound {SAMPLE_CHI2_BOUND} at p = 0.001); in bf16, as "
+          f"the reference draws at full width (7 random mantissa bits a "
+          f"value), {chi2[torch.bfloat16]:.1f} (not a gate)")
+    if not chi2[torch.float32] < SAMPLE_CHI2_BOUND:
+        raise AssertionError("[sample] fp32 draws fail the chi-square test")
+
+    vocab = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+    temp = torch.tensor(SAMPLE_TEMPERATURE, dtype=torch.bfloat16, device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw():
+        return prng.categorical(subs[2], vocab / temp)
+
+    def multinomial():
+        probs = torch.softmax(vocab.float() / SAMPLE_TEMPERATURE, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    ms = cuda_ms(draw)
+    stats = {}
+    profiled(name, f"sampler draw at {shape} bf16", draw, stats=stats)
+    print(f"[sample] sampler: {ms:.3f} ms a draw at {shape} bf16 (events "
+          f"over 20 draws), {stats.get('launches', 'not measured')} kernel "
+          f"launches a draw (the division by T included); [serve]'s decode "
+          f"step {decode_ms:.2f} ms, so {100 * ms / decode_ms:.1f} % of it, "
+          f"on {name}")
+    turns = [cuda_ms(fn) for fn in (draw, multinomial, multinomial, draw)]
+    more = (turns[0] + turns[3] - turns[1] - turns[2]) / 2
+    print(f"[sample] in turns on the same logits, ms a draw: JAX's chain "
+          f"and Gumbel-max {turns[0]:.4f}, fp32 softmax and "
+          f"torch.multinomial {turns[1]:.4f}, {turns[2]:.4f}, JAX's chain "
+          f"{turns[3]:.4f}: {more:.4f} ms a draw more than multinomial, "
+          f"on {name}")
+
+    served = phase_serve(name, SERVE_ARGS + ["--temperature",
+                                             str(SAMPLE_TEMPERATURE)],
+                         flash_attention, 36)
+    same = sum(int((a == b).sum()) for a, b in zip(served["direct"], greedy))
+    total = sum(a.size for a in greedy)
+    print(f"[sample] Qwen3-8B at T {SAMPLE_TEMPERATURE}: {total - same} of "
+          f"{total} tokens differ from [serve]'s greedy ones")
+    if same == total:
+        raise AssertionError("[sample] sampled tokens equal the greedy ones")
+    launches = served["launches"]
+    del served
+    _free()
+    return launches
 
 
 def phase_cluster(name: str, served: dict) -> int:
@@ -2575,8 +2723,10 @@ def main() -> int:
     by_path = {"serve": served["launches"],
                "cluster": phase_cluster(name, served)}
     prefill_ms = prefill_device_ms(name, served["engine"])
+    greedy, decode_ms = served["direct"], served["decode_ms"]
     del served
     _free()
+    by_path["serve_sample"] = phase_sample(name, greedy, decode_ms)
     phase_e2e(name)
     served = phase_serve(name, RWKV_SERVE_ARGS, rwkv6_scan, 24)
     wkv_by_path = {"serve": served["launches"]}

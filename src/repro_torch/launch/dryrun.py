@@ -39,6 +39,11 @@ Usage:
       --shape train_4k [--multi-pod] [--roofline] [--force]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
   (--out-dir DIR writes the JSON there instead)
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
+      --shape train_4k --override train.remat=false --variant noremat
+  (each --override sets one ``section.field`` of the config, its value
+  read as JSON where it parses and as a string where not; the cell's
+  file gains ``__{variant}``)
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import logging
 import os
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils._pytree import tree_flatten
@@ -69,9 +74,10 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
 
-def _cell_path(arch: str, shape: str, mesh_name: str,
+def _cell_path(arch: str, shape: str, mesh_name: str, variant: str = "",
                out_dir: str = RESULTS_DIR) -> str:
-    return os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}.json")
+    v = f"__{variant}" if variant else ""
+    return os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}{v}.json")
 
 
 def _tree_bytes(ctx: ParallelCtx, tree, logical) -> float:
@@ -210,17 +216,24 @@ def memory_analysis(peak, arg_locals) -> Dict[str, Any]:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              do_roofline: bool = False, force: bool = False,
+             overrides: Optional[Dict] = None, variant: str = "",
              out_dir: str = RESULTS_DIR) -> Dict[str, Any]:
+    """One cell's result, cached as JSON. ``overrides`` (see
+    ``_apply_overrides``) change the config, and ``variant`` names the
+    changed cell: its file gains ``__{variant}``."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
-    path = _cell_path(arch, shape_name, mesh_name, out_dir)
+    path = _cell_path(arch, shape_name, mesh_name, variant, out_dir)
     if not force and os.path.exists(path):
         with open(path) as f:
             return json.load(f)
 
     acfg = get_config(arch)
+    if overrides:
+        acfg = _apply_overrides(acfg, overrides)
     shape = get_shape(shape_name)
     result: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "variant": variant, "ok": False,
     }
     skips = dict(acfg.skip_reasons)
     if shape_name not in acfg.shapes:
@@ -253,6 +266,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return result
 
 
+def _apply_overrides(acfg: ArchConfig, overrides: Dict) -> ArchConfig:
+    """Hillclimb knobs: {'parallel.fsdp': True, 'train.remat': False, ...}"""
+    for k, v in overrides.items():
+        section, field_ = k.split(".", 1)
+        sub = getattr(acfg, section)
+        acfg = acfg.replace(**{section: dataclasses.replace(sub,
+                                                            **{field_: v})})
+    return acfg
+
+
 def roofline(ctx: ParallelCtx, acfg: ArchConfig, shape: ShapeSpec,
              mesh_name: str) -> roof_lib.Roofline:
     """The per-segment roofline of a cell, counted on fake tensors."""
@@ -281,7 +304,23 @@ def main(argv=None) -> None:
     ap.add_argument("--out-dir", default=RESULTS_DIR,
                     help="where the cells' JSON goes (default: "
                          "results/dryrun_torch/ at the repo's root)")
+    ap.add_argument("--override", action="append", default=[],
+                    metavar="SECTION.FIELD=VALUE",
+                    help="set one config field (VALUE as JSON, else a "
+                         "string); repeatable")
+    ap.add_argument("--variant", default="",
+                    help="the changed cell's name: its file gains "
+                         "__VARIANT")
     args = ap.parse_args(argv)
+    overrides = {}
+    for item in args.override:
+        key, sep, value = item.partition("=")
+        if not sep or "." not in key:
+            ap.error(f"--override {item!r}: want SECTION.FIELD=VALUE")
+        try:
+            overrides[key] = json.loads(value)
+        except ValueError:
+            overrides[key] = value
     # DTensor warns at every redistribute that sums over two mesh dims
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
         logging.ERROR)
@@ -300,6 +339,7 @@ def main(argv=None) -> None:
     for arch, shape in todo:
         r = run_cell(arch, shape, multi_pod=args.multi_pod,
                      do_roofline=args.roofline, force=args.force,
+                     overrides=overrides, variant=args.variant,
                      out_dir=args.out_dir)
         status = "SKIP" if "skipped" in r else ("OK" if r["ok"] else "FAIL")
         print(f"{status}: {arch} x {shape} (run {r.get('run_s', 0):.1f}s)")

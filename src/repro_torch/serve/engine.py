@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as M
 from repro_torch.rpc.interceptors import (ClientInterceptor,
@@ -91,21 +92,20 @@ class ServeEngine:
                                                              batch)
         return self._decode[batch]
 
-    def _sample(self, logits: torch.Tensor,
-                gen: Optional[torch.Generator]) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor, key: prng.Key) -> torch.Tensor:
         """Greedy: the first maximal index, as ``jnp.argmax``. With a
-        temperature: one draw from the request's own generator."""
+        temperature: ``categorical(key, logits / T)`` on JAX's key chain,
+        in the logits' dtype. T is rounded to that dtype first, as JAX
+        casts a Python float against a bfloat16 array, and divides as a
+        tensor on the logits' device: a Python scalar would be multiplied
+        by its reciprocal on the card, and a copied one would wait for
+        the device."""
+        last = logits[:, -1]
         if self.cfg.temperature <= 0.0:
-            return torch.argmax(logits[:, -1], dim=-1)
-        probs = torch.softmax(logits[:, -1].float() / self.cfg.temperature,
-                              dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
-
-    def _generator(self) -> Optional[torch.Generator]:
-        if self.cfg.temperature <= 0.0:
-            return None
-        return torch.Generator(device=self.device).manual_seed(
-            self.cfg.seed)
+            return torch.argmax(last, dim=-1)
+        temp = torch.tensor(self.cfg.temperature, dtype=last.dtype).item()
+        return prng.categorical(key, last / torch.full(
+            (), temp, dtype=last.dtype, device=last.device))
 
     def _prompts(self, req: Request) -> Dict[str, torch.Tensor]:
         return {"tokens": torch.as_tensor(np.asarray(req.prompts),
@@ -119,19 +119,21 @@ class ServeEngine:
     # scheduler model ops: one request's prefill / decode-step /
     # state rebuild, each at the request's own batch size — the compute
     # half of the continuous-batching loop (ServeScheduler owns the
-    # queueing half). Each request draws from its own generator, seeded
-    # from cfg.seed, in the same order in all three, so a preempted
-    # request resumes identically.
+    # queueing half). Each request walks JAX's key chain from
+    # PRNGKey(cfg.seed), split in the same order in all three as the
+    # reference splits it, so a preempted request resumes identically
+    # and draws the reference's tokens.
     # ------------------------------------------------------------------
 
     def scheduler_prefill(self, req: Request) -> np.ndarray:
         """Prefill ``req`` and sample its first token; leaves the
-        request's decode runtime (states, last token, generator) on it."""
+        request's decode runtime (states, last token, key of JAX's key
+        chain) on it."""
         t0 = time.perf_counter()
         states, logits = self._prefill(self.params, self._prompts(req))
-        gen = self._generator()
-        tok = self._sample(logits, gen)
-        req.runtime = (states, tok, gen)
+        key, k0 = prng.split(prng.prng_key(self.cfg.seed))
+        tok = self._sample(logits, k0)
+        req.runtime = (states, tok, key)
         out = self._host(tok)
         self.op_seconds["prefill"].append(time.perf_counter() - t0)
         return out
@@ -139,11 +141,12 @@ class ServeEngine:
     def scheduler_decode(self, req: Request) -> np.ndarray:
         """Advance ``req`` one decode step; returns the (B,) token."""
         t0 = time.perf_counter()
-        states, tok, gen = req.runtime
+        states, tok, key = req.runtime
+        key, k = prng.split(key)
         states, logits = self._decode_fn(req.rows)(
             self.params, states, tok[:, None], None)
-        tok = self._sample(logits, gen)
-        req.runtime = (states, tok, gen)
+        tok = self._sample(logits, k)
+        req.runtime = (states, tok, key)
         out = self._host(tok)
         self.op_seconds["decode"].append(time.perf_counter() - t0)
         return out
@@ -151,17 +154,18 @@ class ServeEngine:
     def scheduler_rebuild(self, req: Request) -> None:
         """Recompute a preempted request's runtime from its prompt and
         recorded tokens (teacher-forced replay of the exact prefill +
-        decode + draw sequence, so the rebuilt states equal the ones
+        decode + key-split sequence, so the rebuilt states equal the ones
         dropped at preemption)."""
         states, logits = self._prefill(self.params, self._prompts(req))
-        gen = self._generator()
-        tok = self._sample(logits, gen)
+        key, k0 = prng.split(prng.prng_key(self.cfg.seed))
+        tok = self._sample(logits, k0)
         decode = self._decode_fn(req.rows)
         for _ in range(len(req.tokens) - 1):
+            key, k = prng.split(key)
             states, logits = decode(self.params, states, tok[:, None],
                                     None)
-            tok = self._sample(logits, gen)
-        req.runtime = (states, tok, gen)
+            tok = self._sample(logits, k)
+        req.runtime = (states, tok, key)
 
     def make_scheduler(self, *, max_batch: int = 8,
                        kv_blocks: Optional[int] = None,

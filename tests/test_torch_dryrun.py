@@ -41,6 +41,14 @@ ANALYTIC = [(a, s) for a in ARCHS for s in ("train_4k", "decode_32k")]
 # the argument bytes held against XLA's: the reduced cells of the (2, 2)
 # mesh at the kinds that take resident state
 ARG_KINDS = (("train_4k", "train"), ("decode_32k", "decode"))
+# the hillclimb knobs (``run_cell``'s ``overrides``) applied to these archs
+# on both sides, and the qwen3-8b train_4k variants the CLI's subprocess
+# runs on the production mesh through ``--override`` / ``--variant``, cut
+# to 2 layers by an override
+OVERRIDES = {"train.remat": False, "parallel.fsdp": True}
+OVERRIDE_ARCHS = ("qwen3-8b", "mixtral-8x7b")
+VARIANTS = (("l2", ["model.num_layers=2"]),
+            ("l2_noremat", ["model.num_layers=2", "train.remat=false"]))
 # a reduced MoE that trains with Adafactor, at these depths
 MOE_ARCH, MOE_LAYERS = "kimi-k2-1t-a32b", (1, 2)
 # (global shape, placements over the (data, model) mesh) of a parameter,
@@ -59,7 +67,7 @@ sys.meta_path.insert(0, Block())
 """
 
 _JAX_ANALYTIC = """
-import json, sys
+import json, os, sys
 from repro.launch import dryrun as D    # forces 512 host devices
 from repro.configs import get_config, get_shape
 from repro.launch.mesh import make_production_mesh
@@ -105,7 +113,13 @@ for arch in %r:
             "argument_size_in_bytes":
                 compiled.memory_analysis().argument_size_in_bytes,
             "leaves": leaves}
-json.dump(out, open(sys.argv[1], "w"))
+# the hillclimb knobs: the overridden configs and the variant's file name
+for arch in %r:
+    out["overrides/" + arch] = dataclasses.asdict(
+        D._apply_overrides(get_config(arch), %r))
+out["cell_path"] = {v: os.path.basename(D._cell_path(
+    "qwen3-8b", "train_4k", "pod16x16", v)) for v in ("", "l2_noremat")}
+json.dump(out, open(sys.argv[1], "w"), default=str)
 """
 
 
@@ -253,6 +267,11 @@ def run_port_cases(out_dir: str) -> None:
                       "gather_ops": ag.collectives.ops}
     D.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--force",
             "--out-dir", os.path.join(out_dir, "cli")])
+    for variant, over in VARIANTS:
+        D.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--force",
+                "--variant", variant,
+                "--out-dir", os.path.join(out_dir, "cli")]
+               + [a for o in over for a in ("--override", o)])
     assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
     with open(os.path.join(out_dir, "port.json"), "w") as f:
         json.dump(res, f)
@@ -266,7 +285,8 @@ def runs(tmp_path_factory):
         [sys.executable, os.path.abspath(__file__), str(d)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     ref = subprocess.Popen(
-        [sys.executable, "-c", _JAX_ANALYTIC % (ANALYTIC, ARCHS, ARG_KINDS),
+        [sys.executable, "-c", _JAX_ANALYTIC % (ANALYTIC, ARCHS, ARG_KINDS,
+                                          OVERRIDE_ARCHS, OVERRIDES),
          str(d / "ref.json")], env=dict(env, JAX_PLATFORMS="cpu"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     procs = {"port": port, "ref": ref}
@@ -461,6 +481,53 @@ def test_dryrun_cli_production_cell(runs):
     ma = r["memory_analysis"]
     assert ma["peak_memory_in_bytes"] >= ma["argument_size_in_bytes"] > 0
     assert "while_trip_counts" not in r and "overlap" not in r
+
+
+@pytest.mark.parametrize("arch", OVERRIDE_ARCHS)
+def test_overrides_equal_the_references(runs, arch):
+    """``_apply_overrides`` sets each ``section.field`` as the
+    reference's does: the overridden configs agree field by field."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _apply_overrides
+    ref = _json(runs, "ref", "ref.json")[f"overrides/{arch}"]
+    got = _apply_overrides(get_config(arch), OVERRIDES)
+    assert not got.train.remat and got.parallel.fsdp
+    assert get_config(arch).train.remat
+    assert json.loads(json.dumps(dataclasses.asdict(got), default=str)) \
+        == ref
+
+
+def test_variant_cells_carry_their_name_and_overrides(runs):
+    """The CLI's ``--override`` / ``--variant`` (``run_cell(...,
+    overrides, variant)``) on the production mesh: the file gains the
+    reference's ``__{variant}`` suffix, the result names its variant, and
+    the overrides reach the step (2 of 36 layers count far fewer FLOPs,
+    and without remat fewer again)."""
+    from repro_torch.launch.dryrun import _cell_path
+    names = _json(runs, "ref", "ref.json")["cell_path"]
+    d = runs[0] / "cli"
+    for v, want in names.items():
+        assert os.path.basename(_cell_path(
+            "qwen3-8b", "train_4k", "pod16x16", v, str(d))) == want
+    full = _json(runs, "port", "cli/" + names[""])
+    assert full["variant"] == ""
+    flops = {}
+    for v, _ in VARIANTS:
+        r = _json(runs, "port", f"cli/{names[''][:-5]}__{v}.json")
+        assert r["ok"], r.get("error")
+        assert r["variant"] == v
+        flops[v] = r["cost_analysis"]["flops"]
+    assert flops["l2_noremat"] < flops["l2"] < full["cost_analysis"][
+        "flops"] / 10
+
+
+@pytest.mark.parametrize("item", ["train.remat", "remat=false"])
+def test_cli_refuses_an_override_without_section_and_value(item, capsys):
+    from repro_torch.launch import dryrun as D
+    with pytest.raises(SystemExit):
+        D.main(["--arch", "qwen3-8b", "--shape", "train_4k",
+                "--override", item])
+    assert "SECTION.FIELD=VALUE" in capsys.readouterr().err
 
 
 def test_model_flops_equal_the_reference_for_every_cell():

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (flash attention, payload pack / unpack, the
 RWKV-6 WKV scan) against their plain versions on the card, the flash
-kernel under autograd in a train step, and the MoE and Mamba models on
-the card against the CPU (imports torch only, so it runs where JAX is
+kernel under autograd in a train step, the MoE and Mamba models and the
+sampler's key chain and noise on the card against the CPU (imports torch only, so it runs where JAX is
 not installed):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -695,3 +695,42 @@ def test_roofline_counts_on_the_card_equal_the_cpu_counts(cuda, kind):
         assert on_card[k].flops == on_cpu[k].flops, k
         assert on_card[k].bytes_accessed == pytest.approx(
             on_cpu[k].bytes_accessed, rel=1e-2), k
+
+
+# ---------------------------------------------------------------------------
+# temperature sampling: JAX's key chain and Gumbel noise (core/prng.py),
+# on the card against the CPU at the tolerances of chip_smoke.py [sample]
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import prng  # noqa: E402
+
+SAMPLE_SHAPE = (4, 151936)
+
+
+def test_sampler_chain_and_noise_on_the_card_equal_the_cpus(cuda):
+    """Each split of the chain from seed 0, hashed on the card, equals
+    the host's; random bits are equal, bf16 Gumbel noise within one ulp
+    and fp32 within 2e-6 of the CPU's; a categorical draw of fp32 logits
+    on the card gives the CPU's tokens."""
+    key = prng.prng_key(0)
+    for _ in range(8):
+        counters = torch.arange(2, dtype=torch.int64, device=cuda)
+        a, b = prng.threefry2x32(key[0], key[1], counters >> 32, counters)
+        key, sub = prng.split(key)
+        assert tuple(zip(a.tolist(), b.tolist())) == (key, sub)
+    for width in (8, 16, 32):
+        assert torch.equal(prng.random_bits(sub, width, SAMPLE_SHAPE,
+                                            cuda).cpu(),
+                           prng.random_bits(sub, width, SAMPLE_SHAPE))
+    ulps = prng.bf16_ulps(prng.gumbel(sub, SAMPLE_SHAPE, torch.bfloat16,
+                                     cuda),
+                        prng.gumbel(sub, SAMPLE_SHAPE, torch.bfloat16))
+    assert ulps.max().item() <= 1
+    f32 = prng.gumbel(sub, SAMPLE_SHAPE, torch.float32, cuda).cpu()
+    torch.testing.assert_close(f32, prng.gumbel(sub, SAMPLE_SHAPE,
+                                                torch.float32),
+                               atol=2e-6, rtol=0)
+    logits = torch.randn(SAMPLE_SHAPE, generator=torch.Generator()
+                         .manual_seed(0)) * 3
+    assert torch.equal(prng.categorical(sub, logits.to(cuda)).cpu(),
+                       prng.categorical(sub, logits))

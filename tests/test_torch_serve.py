@@ -26,6 +26,17 @@ ARCH = "qwen3-8b"
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one thread each, so that parallel test workers do
+    not oversubscribe the cores (the fault tier's timing tests share
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines():
     jcfg = jax_reduced(ARCH)
@@ -67,9 +78,9 @@ def test_prefill_and_decode_ops_are_timed(engines):
 
 
 def test_temperature_sampling_replays_across_preemption():
-    """Each request draws from its own generator seeded from cfg.seed;
-    a request preempted by the KV budget is rebuilt by replaying the
-    same draws, so it finishes with the tokens of its solo run."""
+    """Each request walks JAX's key chain from PRNGKey(cfg.seed); a
+    request preempted by the KV budget is rebuilt by replaying the same
+    splits and draws, so it finishes with the tokens of its solo run."""
     params = from_jax_params(jax.tree.map(
         np.asarray, jax_init_params(jax.random.PRNGKey(0),
                                     jax_reduced(ARCH))))
