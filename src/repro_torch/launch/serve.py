@@ -41,7 +41,12 @@ and per-endpoint interceptor metrics:
 (loopback or cluster) and exports every request's span tree — queue /
 credit-stall / wire / server / reply phases, retries and shard
 failovers included, plus the scheduler's waiting / prefill / decode /
-preempted request phases — as Chrome trace-event JSON for Perfetto.
+preempted request phases and a ``decode_step`` span per decode op — as
+Chrome trace-event JSON for Perfetto. The same tracer opens the serving
+path's regions as profiler ranges (``rpc.flush`` > ``sched.step`` >
+``serve.prefill`` / ``serve.rebuild`` / ``serve.decode`` > ``serve.launch``,
+``serve.to_host``), which a ``torch.profiler`` trace of the run shows on
+the device's clock.
 
 Each served endpoint runs a continuous-batching scheduler
 (``repro_torch.serve.scheduler``): ``--max-batch N`` caps concurrent decodes

@@ -1247,6 +1247,14 @@ class RpcFabric:
         rides this to interleave new arrivals with in-flight traffic
         on the modeled clock. Flights are atomic, so the clock may
         overshoot ``until_s`` by one flight."""
+        # traced: the whole drive is the region ``rpc.flush`` (framing,
+        # delivery, the stream pumps and the handlers they run)
+        if self.tracer is not None:
+            with self.tracer.region("rpc.flush"):
+                return self._flush(until_s)
+        return self._flush(until_s)
+
+    def _flush(self, until_s: Optional[float]) -> FlightReport:
         rep = FlightReport(modeled=self.transport.modeled)
         t0 = time.perf_counter()
         while True:

@@ -36,6 +36,7 @@ This module never reads wall time itself (CI telemetry-clock gate).
 from __future__ import annotations
 
 import json
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -302,6 +303,33 @@ class Tracer:
         st.root.attrs["attempts"] = ctx.attempts
         if error:
             st.root.attrs["error"] = error
+
+    # live regions -----------------------------------------------------
+    #: ``name -> context manager``: a profiler range that every region
+    #: opens, so that a device trace shows the serving path on its own
+    #: clock. The serving side installs one (this module imports no
+    #: profiler); without it a region records call spans only.
+    range_factory: Any = None
+
+    @contextmanager
+    def region(self, name: str, *, frame=None,
+               endpoint: Optional[int] = None, span: Optional[str] = None,
+               **attrs) -> Iterator[None]:
+        """A live region of the path that serves calls (``rpc.flush``,
+        ``sched.step``, ``serve.decode``, ...): the range of ``name``
+        around the body and, given the ``frame`` of the call it works
+        for, a server span ``span`` (default ``name``) in that call's
+        tree on ``endpoint``'s track, on the fabric clock. Callers
+        without a tracer enter no region at all."""
+        f = self.range_factory
+        with f(name) if f is not None else nullcontext():
+            if frame is None:
+                yield
+                return
+            t0 = self.now()
+            yield
+            self.server_span(frame, endpoint, span or name, t0,
+                             self.now(), **attrs)
 
     # queries ----------------------------------------------------------
     def spans(self) -> List[Span]:

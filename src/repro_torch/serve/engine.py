@@ -129,33 +129,65 @@ class ServeEngine:
         """Prefill ``req`` and sample its first token; leaves the
         request's decode runtime (states, last token, key of JAX's key
         chain) on it."""
-        t0 = time.perf_counter()
-        states, logits = self._prefill(self.params, self._prompts(req))
-        key, k0 = prng.split(prng.prng_key(self.cfg.seed))
-        tok = self._sample(logits, k0)
-        req.runtime = (states, tok, key)
-        out = self._host(tok)
-        self.op_seconds["prefill"].append(time.perf_counter() - t0)
-        return out
+        return self._op("prefill", req, self._launch_prefill)
 
     def scheduler_decode(self, req: Request) -> np.ndarray:
         """Advance ``req`` one decode step; returns the (B,) token."""
-        t0 = time.perf_counter()
-        states, tok, key = req.runtime
-        key, k = prng.split(key)
-        states, logits = self._decode_fn(req.rows)(
-            self.params, states, tok[:, None], None)
-        tok = self._sample(logits, k)
-        req.runtime = (states, tok, key)
-        out = self._host(tok)
-        self.op_seconds["decode"].append(time.perf_counter() - t0)
-        return out
+        return self._op("decode", req, self._launch_decode)
 
     def scheduler_rebuild(self, req: Request) -> None:
         """Recompute a preempted request's runtime from its prompt and
         recorded tokens (teacher-forced replay of the exact prefill +
         decode + key-split sequence, so the rebuilt states equal the ones
         dropped at preemption)."""
+        tracer = _tracer_of(req)
+        if tracer is None:
+            self._replay(req)
+            return
+        with tracer.region("serve.rebuild"), tracer.region("serve.launch"):
+            self._replay(req)
+
+    def _op(self, kind: str, req: Request, launch) -> np.ndarray:
+        """One prefill or decode op, timed into ``op_seconds[kind]``:
+        ``launch(req)`` enqueues the forward and the sampling, and the
+        token's copy to the host waits for the device. For a streamed
+        call on a traced fabric the op is the region ``serve.<kind>``
+        around ``serve.launch`` and ``serve.to_host``, and a decode op
+        is also a ``decode_step`` span in the call's tree."""
+        t0 = time.perf_counter()
+        tracer = _tracer_of(req)
+        if tracer is None:
+            out = self._host(launch(req))
+        else:
+            pump = req.pump
+            call = (dict(frame=pump.frame, endpoint=pump.server.endpoint,
+                         span="decode_step", request=req.id)
+                    if kind == "decode" else {})
+            with tracer.region(f"serve.{kind}", **call):
+                with tracer.region("serve.launch"):
+                    tok = launch(req)
+                with tracer.region("serve.to_host"):
+                    out = self._host(tok)
+        self.op_seconds[kind].append(time.perf_counter() - t0)
+        return out
+
+    def _launch_prefill(self, req: Request) -> torch.Tensor:
+        states, logits = self._prefill(self.params, self._prompts(req))
+        key, k0 = prng.split(prng.prng_key(self.cfg.seed))
+        tok = self._sample(logits, k0)
+        req.runtime = (states, tok, key)
+        return tok
+
+    def _launch_decode(self, req: Request) -> torch.Tensor:
+        states, tok, key = req.runtime
+        key, k = prng.split(key)
+        states, logits = self._decode_fn(req.rows)(
+            self.params, states, tok[:, None], None)
+        tok = self._sample(logits, k)
+        req.runtime = (states, tok, key)
+        return tok
+
+    def _replay(self, req: Request) -> None:
         states, logits = self._prefill(self.params, self._prompts(req))
         key, k0 = prng.split(prng.prng_key(self.cfg.seed))
         tok = self._sample(logits, k0)
@@ -269,14 +301,16 @@ class ServeEngine:
         loopback-transport fabric with this engine at ``endpoint``.
         ``tracer`` (a ``rpc.Tracer``) records per-call span trees —
         including the scheduler's waiting/prefill/decode/preempted
-        phases. ``max_batch`` / ``kv_blocks`` / ``block_size``
-        configure the endpoint's scheduler. Returns (fabric, client
-        channel)."""
+        phases and the engine's ``decode_step`` spans — and opens the
+        serving path's regions (``rpc.flush``, ``sched.step``,
+        ``serve.*``) as profiler ranges. ``max_batch`` / ``kv_blocks`` /
+        ``block_size`` configure the endpoint's scheduler. Returns
+        (fabric, client channel)."""
         from repro_torch import rpc as rpclib
         fabric = rpclib.RpcFabric(
             rpclib.make_transport("loopback",
                                   max(endpoint, client) + 1),
-            tracer=tracer)
+            tracer=_ranged(tracer))
         self.attach(fabric.add_server(endpoint), max_batch=max_batch,
                     kv_blocks=kv_blocks, block_size=block_size,
                     sched_policy=sched_policy,
@@ -312,7 +346,8 @@ class ServeEngine:
         ``MetricsInterceptor`` when one is present in the chain.
         ``tracer`` (a ``rpc.Tracer``) records per-call span trees —
         spans follow calls across endpoints and through shard
-        failover re-routes.
+        failover re-routes — and opens the serving path's regions as
+        profiler ranges.
 
         ``max_batch`` / ``kv_blocks`` / ``block_size`` configure each
         PS endpoint's continuous-batching scheduler; each scheduler
@@ -335,7 +370,7 @@ class ServeEngine:
                                               **fault)
         fabric = rpclib.RpcFabric(
             transport, client_interceptors=client_interceptors,
-            server_interceptors=server_interceptors, tracer=tracer)
+            server_interceptors=server_interceptors, tracer=_ranged(tracer))
         limits = cluster.admission_limits()
         if limits and not any(isinstance(si, rpclib.AdmissionInterceptor)
                               for si in fabric.server_interceptors):
@@ -440,6 +475,33 @@ def serve_handlers(scheduler: ServeScheduler):
         return pump
 
     return {"generate": generate, "generate_stream": generate_stream}
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler`` range of ``name`` on the host's timeline. It
+    is one of function scope: ``record_function``'s user scope would also
+    be projected onto the device's timeline, where a device trace counts
+    it as device work. ``_RecordFunctionFast`` is private API, checked
+    on torch 2.11.0+cu128 and 2.13.0+cpu; ``tests/test_torch_serve_spans.py``
+    fails with a plain message where a torch release drops it."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def _ranged(tracer):
+    """``tracer`` with :func:`profiler_range` as its regions' range, so
+    that a device trace shows them (None stays None)."""
+    if tracer is not None and tracer.range_factory is None:
+        tracer.range_factory = profiler_range
+    return tracer
+
+
+def _tracer_of(req: Request):
+    """The tracer of the streamed call ``req`` serves: its pump is bound
+    to the call's server at dispatch. None for an untraced fabric or a
+    unary call, whose ops are then no regions."""
+    pump = req.pump
+    return pump.server.tracer if pump is not None \
+        and pump.server is not None else None
 
 
 def bind_scheduler(server, scheduler: ServeScheduler) -> ServeScheduler:

@@ -29,7 +29,12 @@ suite asserts this).
 Scheduler phases are recorded as tracer spans on the serving
 endpoint's track (``waiting`` / ``prefill`` / ``decode`` /
 ``preempted``) when the scheduler is bound to an ``rpc.Server`` with a
-tracer attached — ``serve --trace`` shows per-request timelines.
+tracer attached — ``serve --trace`` shows per-request timelines. The
+tracer's regions nest as profiler ranges on a device trace's clock:
+``rpc.flush`` around each ``sched.step``, around the engine's
+``serve.prefill`` / ``serve.rebuild`` / ``serve.decode`` ops (each
+``serve.launch`` then ``serve.to_host``); each decode op is also a
+``decode_step`` span in its call's tree.
 """
 from __future__ import annotations
 
@@ -260,6 +265,15 @@ class ServeScheduler:
         """One tick of the continuous batch: admit/resume what fits,
         preempt on budget exhaustion, then advance every running
         request one token. Returns the number of tokens produced."""
+        # traced: the step is the region ``sched.step`` (admission,
+        # preemption and every request's engine op)
+        tracer = self._server.tracer if self._server is not None else None
+        if tracer is not None:
+            with tracer.region("sched.step"):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> int:
         fresh: List[Request] = []
         # join: policy order, bounded by max_batch + kv budget (the
         # selected candidate not fitting blocks further admission —

@@ -35,7 +35,9 @@ COPIED = sorted(
 # runs the port's CUDA pack/unpack kernels on torch tensors, the lazy
 # collective transport names torch, and the fabric drops the two
 # deprecated register_* wrappers, whose names the grep gates of
-# tests/test_service_api.py forbid outside src/repro/rpc/. Those gates
+# tests/test_service_api.py forbid outside src/repro/rpc/; the port's
+# tracer opens live regions (profiler ranges on a device trace's clock),
+# which the fabric's flush and the scheduler's step enter. Those gates
 # are also why the copies split a few lines (``Name \`` + ``(args)``),
 # which leaves the syntax tree unchanged, so copies are compared as
 # syntax trees.
@@ -62,7 +64,67 @@ DIFFERENCES = {
         ("the collective transport pulls in torch/channels",
          "the collective transport pulls in jax/channels"),
     ],
+    "rpc/tracing.py": [
+        ("from contextlib import contextmanager, nullcontext\n", ""),
+        ("""    # live regions -----------------------------------------------------
+    #: ``name -> context manager``: a profiler range that every region
+    #: opens, so that a device trace shows the serving path on its own
+    #: clock. The serving side installs one (this module imports no
+    #: profiler); without it a region records call spans only.
+    range_factory: Any = None
+
+    @contextmanager
+    def region(self, name: str, *, frame=None,
+               endpoint: Optional[int] = None, span: Optional[str] = None,
+               **attrs) -> Iterator[None]:
+        \"\"\"A live region of the path that serves calls (``rpc.flush``,
+        ``sched.step``, ``serve.decode``, ...): the range of ``name``
+        around the body and, given the ``frame`` of the call it works
+        for, a server span ``span`` (default ``name``) in that call's
+        tree on ``endpoint``'s track, on the fabric clock. Callers
+        without a tracer enter no region at all.\"\"\"
+        f = self.range_factory
+        with f(name) if f is not None else nullcontext():
+            if frame is None:
+                yield
+                return
+            t0 = self.now()
+            yield
+            self.server_span(frame, endpoint, span or name, t0,
+                             self.now(), **attrs)
+
+""", ""),
+    ],
+    "serve/scheduler.py": [
+        ("""shows per-request timelines. The
+tracer's regions nest as profiler ranges on a device trace's clock:
+``rpc.flush`` around each ``sched.step``, around the engine's
+``serve.prefill`` / ``serve.rebuild`` / ``serve.decode`` ops (each
+``serve.launch`` then ``serve.to_host``); each decode op is also a
+``decode_step`` span in its call's tree.
+""", """shows per-request timelines.
+"""),
+        ("""        # traced: the step is the region ``sched.step`` (admission,
+        # preemption and every request's engine op)
+        tracer = self._server.tracer if self._server is not None else None
+        if tracer is not None:
+            with tracer.region("sched.step"):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> int:
+""", ""),
+    ],
     "rpc/fabric.py": [
+        ("""        # traced: the whole drive is the region ``rpc.flush`` (framing,
+        # delivery, the stream pumps and the handlers they run)
+        if self.tracer is not None:
+            with self.tracer.region("rpc.flush"):
+                return self._flush(until_s)
+        return self._flush(until_s)
+
+    def _flush(self, until_s: Optional[float]) -> FlightReport:
+""", ""),
         ("    def abort_call(", '''    def register_server_stream(self, name: str, handler: Callable) -> None:
         """Deprecated — use :meth:`add_service` with a SERVER_STREAM
         ``MethodSpec``. handler(request_bufs) -> iterable of chunks."""
