@@ -83,12 +83,13 @@ def _cell_path(arch: str, shape: str, mesh_name: str, variant: str = "",
 def _tree_bytes(ctx: ParallelCtx, tree, logical) -> float:
     """Bytes per device of a tree of stand-ins laid out by its logical
     axes: each leaf's bytes over the product of the mesh dims that shard
-    it (a KV cache's integer index counts as the reference's int32)."""
+    it (a KV cache's position, a host int or a 0-d tensor, counts as the
+    reference's int32)."""
     if isinstance(tree, dict):
         return sum(_tree_bytes(ctx, v, logical[k]) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
         return sum(_tree_bytes(ctx, v, a) for v, a in zip(tree, logical))
-    if isinstance(tree, int):
+    if isinstance(tree, int) or tree.dim() == 0:
         return 4.0
     div = 1
     for ax in ctx.spec(*logical):

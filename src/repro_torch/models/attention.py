@@ -50,8 +50,11 @@ def init_attention(cfg: ModelConfig, att: AttentionConfig, dtype, *,
 class KVCache(NamedTuple):
     k: torch.Tensor       # (B, S_cache, n_kv, d_head)
     v: torch.Tensor       # (B, S_cache, n_kv, d_head)
-    # the *global* write cursor (tokens seen so far); one for the batch
-    index: int
+    # the *global* write cursor (tokens seen so far); one for the batch.
+    # A 0-d int64 tensor on the cache's device, so that a decode step
+    # reads no host value and can be replayed as a CUDA graph; a host int
+    # over a mesh
+    index: torch.Tensor
 
 
 def _qkv(p: dict, att: AttentionConfig, x: torch.Tensor,
@@ -173,22 +176,23 @@ def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
 
     For windowed layers the cache is a ring buffer of size >= window; for
     full layers Sc is the max context. ``cache.index`` is the global
-    token position of the incoming token.
+    token position of the incoming token, a 0-d tensor: the position,
+    the ring slot and the mask are computed from it on the device, so
+    the launches do not depend on it.
     """
     B, S1, d = x.shape
     assert S1 == 1
     Sc = cache.k.shape[1]
-    index = int(cache.index)
-    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(p, att, x, pos)
+    index = cache.index
+    q, k_new, v_new = _qkv(p, att, x, index.to(torch.int32).reshape(1))
 
     # The new K/V go into the ring-buffer slot IN PLACE (the reference
     # builds a new cache with dynamic_update_slice); the cache belongs to
     # one request's decode state, so nothing else sees the write.
-    slot = index % Sc
+    slot = torch.remainder(index, Sc).reshape(1)
     k, v = cache.k, cache.v
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
 
     # Position of every cache slot, reconstructed from the ring layout:
     # the most recent position p <= index with p % Sc == slot.
@@ -225,7 +229,7 @@ def init_cache(att: AttentionConfig, batch: int, max_seq: int,
     shape = (batch, Sc, att.n_kv_heads, att.d_head)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   index=0)
+                   index=torch.zeros((), dtype=torch.int64, device=device))
 
 
 # ---------------------------------------------------------------------------

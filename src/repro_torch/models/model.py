@@ -382,7 +382,7 @@ def _sharded_cache(ctx: ParallelCtx, k, v, window: Optional[int],
     def put(t):
         return sh.DTensor.from_local(t, ctx.mesh, rep, run_check=False) \
             .redistribute(ctx.mesh, pl)
-    return KVCache(k=put(cache.k), v=put(cache.v), index=cache.index)
+    return KVCache(k=put(cache.k), v=put(cache.v), index=k.shape[1])
 
 
 def _cache_axes(ctx: ParallelCtx, batch: int) -> LP:
@@ -610,7 +610,8 @@ def _remat_policy(policy: str) -> dict:
 
 def _cache_from_prefill(kv, window: Optional[int],
                         max_seq: int) -> KVCache:
-    """Lay prefill K/V out as a ring buffer of Sc slots (slot = pos % Sc)."""
+    """Lay prefill K/V out as a ring buffer of Sc slots (slot = pos % Sc);
+    the position on the device (``KVCache.index``)."""
     k, v = kv
     B, S, KV, dh = k.shape
     Sc = min(max_seq, window) if window is not None else max_seq
@@ -621,7 +622,8 @@ def _cache_from_prefill(kv, window: Optional[int],
         kp, vp = k.new_zeros((B, Sc, KV, dh)), v.new_zeros((B, Sc, KV, dh))
         kp[:, :S], vp[:, :S] = k, v
         k, v = kp, vp
-    return KVCache(k=k, v=v, index=S)
+    return KVCache(k=k, v=v, index=torch.full((), S, dtype=torch.int64,
+                                              device=k.device))
 
 
 # =========================================================================
@@ -857,12 +859,11 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
         return states
 
     def put(a, lp):
-        return a if isinstance(a, int) else \
-            sh.place(a, ctx.mesh, ctx.placements(*lp))
+        return sh.place(a, ctx.mesh, ctx.placements(*lp))
 
     def put_tree(st, ax):
-        if isinstance(st, KVCache):
-            return KVCache(*(put(a, lp) for a, lp in zip(st, ax)))
+        if isinstance(st, KVCache):   # the position a host int (0)
+            return KVCache(put(st.k, ax.k), put(st.v, ax.v), 0)
         if isinstance(st, dict):
             return {k: put_tree(v, ax[k]) for k, v in st.items()}
         return put(st, ax)

@@ -35,15 +35,24 @@ every ``ps`` endpoint of a ``rpc.ClusterSpec`` and hands each
 that shards generation requests across the PS endpoints under a
 ``round_robin`` or ``least_loaded`` policy, so several client
 endpoints generate concurrently over per-link-priced cluster routes.
+
+On a CUDA device a request decodes from a fixed slot (:class:`_DecodeSlot`):
+its prefill's states are copied into buffers that one CUDA graph of the
+batch-1 decode step reads and writes, and every decode after the slot's
+first replays that graph, so the host enqueues one graph a token instead
+of the step's thousand-odd operations. Sampling stays outside the graph.
+Elsewhere (the CPU) the step runs eagerly.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -78,6 +87,14 @@ class ServeEngine:
         self._prefill = steps_lib.make_prefill_step(acfg,
                                                     max_seq=cfg.max_seq)
         self._decode = {}
+        #: decode slots by row count, made on demand (CUDA only)
+        self._slots: Dict[int, List[_DecodeSlot]] = {}
+        self._pool = self._stream = None      # the graphs' pool, stream
+        #: how decode steps ran: a slot's first decode runs eagerly and is
+        #: then captured, its later ones replay the graph; where no slot
+        #: holds the states (the CPU) the step runs eagerly
+        self.counters = {"graph_captures": 0, "graph_replays": 0,
+                         "eager_decodes": 0}
         #: per-endpoint ServeScheduler, populated by :meth:`attach`
         self.schedulers: Dict = {}
         #: host seconds of every prefill / decode op, each ending in the
@@ -175,29 +192,91 @@ class ServeEngine:
         states, logits = self._prefill(self.params, self._prompts(req))
         key, k0 = prng.split(prng.prng_key(self.cfg.seed))
         tok = self._sample(logits, k0)
-        req.runtime = (states, tok, key)
+        req.runtime = (self._hold(req, states, tok), tok, key)
         return tok
 
     def _launch_decode(self, req: Request) -> torch.Tensor:
         states, tok, key = req.runtime
         key, k = prng.split(key)
-        states, logits = self._decode_fn(req.rows)(
-            self.params, states, tok[:, None], None)
+        states, logits = self._decode_step(req, states, tok)
         tok = self._sample(logits, k)
         req.runtime = (states, tok, key)
         return tok
 
     def _replay(self, req: Request) -> None:
-        states, logits = self._prefill(self.params, self._prompts(req))
-        key, k0 = prng.split(prng.prng_key(self.cfg.seed))
-        tok = self._sample(logits, k0)
-        decode = self._decode_fn(req.rows)
+        self._launch_prefill(req)
         for _ in range(len(req.tokens) - 1):
-            key, k = prng.split(key)
-            states, logits = decode(self.params, states, tok[:, None],
+            self._launch_decode(req)
+
+    # ------------------------------------------------------------------
+    # decode slots and their CUDA graphs
+    # ------------------------------------------------------------------
+
+    def _hold(self, req: Request, states, tok: torch.Tensor):
+        """The states ``req`` decodes from. On a CUDA device those of a
+        free slot of its row count, which ``req`` now owns: a fresh
+        slot adopts the prefill's states, a reused one copies them in.
+        Elsewhere the prefill's own."""
+        if self.device.type != "cuda":
+            return states
+        slots = self._slots.setdefault(req.rows, [])
+        slot = next((s for s in slots if s.free()), None)
+        if slot is None:
+            slot = _DecodeSlot(states, tok)
+            slots.append(slot)
+        else:
+            _copy_new(slot.states, states)
+        slot.owner = req
+        return slot.states
+
+    def _decode_step(self, req: Request, states, tok: torch.Tensor):
+        """One decode step of ``req`` from ``states`` at its last token
+        ``tok``: the replay of its slot's graph (the region
+        ``serve.graph`` on a traced call), the slot's first step and its
+        capture, or, where no slot holds ``states``, the eager step.
+        Returns (states, logits)."""
+        slot = next((s for s in self._slots.get(req.rows, ())
+                     if s.states is states), None)
+        if slot is None:
+            self.counters["eager_decodes"] += 1
+            return self._decode_fn(req.rows)(self.params, states,
+                                             tok[:, None], None)
+        slot.tok.copy_(tok[:, None])
+        if slot.graph is None:
+            return self._capture(req.rows, slot)
+        tracer = _tracer_of(req)
+        with (tracer.region("serve.graph") if tracer is not None
+              else nullcontext()):
+            slot.graph.replay()
+        self.counters["graph_replays"] += 1
+        return slot.states, slot.logits
+
+    def _capture(self, rows: int, slot: "_DecodeSlot"):
+        """A slot's first decode step, run eagerly on a side stream (the
+        warm-up a capture needs) with its new states copied into the
+        slot's, then captured as a CUDA graph over the slot's buffers:
+        the same step, ending in the same copies. Every slot's graph
+        shares one memory pool, as replays run one at a time on one
+        stream. Returns the eager step's (states, logits)."""
+        decode = self._decode_fn(rows)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            states, logits = decode(self.params, slot.states, slot.tok,
                                     None)
-            tok = self._sample(logits, k)
-        req.runtime = (states, tok, key)
+            _copy_new(slot.states, states)
+        main.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            new, slot.logits = decode(self.params, slot.states, slot.tok,
+                                      None)
+            _copy_new(slot.states, new)
+        slot.graph = graph
+        self.counters["graph_captures"] += 1
+        return slot.states, logits
 
     def make_scheduler(self, *, max_batch: int = 8,
                        kv_blocks: Optional[int] = None,
@@ -389,6 +468,35 @@ class ServeEngine:
                                      serialized=serialized)
                  for w in workers}
         return fabric, stubs
+
+
+class _DecodeSlot:
+    """Fixed decode buffers of one request at a given row count: its
+    states (KV caches at ``max_seq``, positions, recurrent states), its
+    input token, and once captured the CUDA graph of one decode step
+    over them with that graph's logits. A slot is owned by the request
+    that holds its states in its runtime; the scheduler drops a
+    request's runtime at finish, preemption and cancellation, which
+    frees the slot."""
+
+    def __init__(self, states, tok: torch.Tensor):
+        self.states = states
+        self.tok = torch.empty_like(tok[:, None])
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.owner: Optional[Request] = None
+
+    def free(self) -> bool:
+        rt = self.owner.runtime if self.owner is not None else None
+        return rt is None or rt[0] is not self.states
+
+
+def _copy_new(static, new) -> None:
+    """Copy each tensor of the state tree ``new`` into ``static``'s, where
+    it is another tensor (a KV cache written in place is the same one)."""
+    for dst, src in zip(tree_leaves(static), tree_leaves(new)):
+        if dst is not src:
+            dst.copy_(src)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.launch import steps as S
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import model as M
+from repro_torch.models.attention import KVCache
 from repro_torch.models.convert import from_jax_params, to_jax_params
 from repro_torch.optim import optimizer as O
 from repro_torch.parallel.sharding import NO_MESH, full, make_ctx
@@ -123,7 +124,10 @@ def _forward(work, name, ctx, tokens, embeds):
 def _state_leaves(tree) -> list:
     """A prefill / decode state tree's tensors, gathered whole, in an
     order that does not depend on how the dicts were built (keys
-    sorted; a KV cache's integer cursor left out)."""
+    sorted; a KV cache's cursor left out: a host int over a mesh, a 0-d
+    tensor without one)."""
+    if isinstance(tree, KVCache):
+        return _state_leaves([tree.k, tree.v])
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _state_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):

@@ -164,6 +164,49 @@ def test_windowed_decode_ring_buffer():
         assert tc.index == int(jc.index) == S + step + 1
 
 
+@pytest.mark.parametrize("window,S,max_seq,n_steps", [
+    (4, 6, 16, 7),        # a ring of 4 slots wraps twice while decoding
+    (None, 6, 8, 6),      # a full cache of 8 slots wraps past its end
+], ids=["window", "no_window"])
+def test_decode_position_on_the_device_across_a_ring_wrap(window, S, max_seq,
+                                                           n_steps):
+    """The cache's position is a 0-d int64 tensor on the cache's device,
+    from which decode computes the RoPE position, the ring slot, the K/V
+    write and the mask; across the ring's wrap every output, both caches
+    and the advanced position equal the reference's, and the step leaves
+    the position it was given as it was."""
+    att, tatt, jp, tp = _attention_setup(window)
+    x = _rng(30).standard_normal((2, S, 64)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    _, jkv = jax.jit(jax_attn.attention_forward, static_argnums=1,
+                     static_argnames=("window", "causal", "return_kv"))(
+        jp, att, jnp.asarray(x), jnp.asarray(pos), window=window,
+        causal=True, return_kv=True)
+    _, tkv = attn.attention_forward(tp, tatt, torch.from_numpy(x),
+                                    torch.from_numpy(pos), window=window,
+                                    causal=True, return_kv=True)
+    jc = jax_model._cache_from_prefill(jkv, window, max_seq)
+    tc = M._cache_from_prefill(tkv, window, max_seq)
+    jdecode = jax.jit(jax_attn.attention_decode, static_argnums=1,
+                      static_argnames="window")
+    Sc = tc.k.shape[1]
+    assert S + n_steps > Sc + 1          # the ring wraps in the decode
+    for step in range(n_steps):
+        assert isinstance(tc.index, torch.Tensor)
+        assert tc.index.dim() == 0 and tc.index.dtype == torch.int64
+        assert tc.index.device == tc.k.device
+        given = tc.index
+        xs = _rng(40 + step).standard_normal((2, 1, 64)).astype(np.float32)
+        jo, jc = jdecode(jp, att, jnp.asarray(xs), jc, window=window)
+        to, tc = attn.attention_decode(tp, tatt, torch.from_numpy(xs), tc,
+                                       window=window)
+        _close(to, jo)
+        _close(tc.k, jc.k)
+        _close(tc.v, jc.v)
+        assert int(given) == S + step
+        assert int(tc.index) == int(jc.index) == S + step + 1
+
+
 # ---------------------------------------------------------------------------
 # the reduced Qwen3-8B: prefill logits, KV states, decode steps
 # ---------------------------------------------------------------------------
