@@ -27,6 +27,8 @@ class AttentionConfig:
     sliding_window: Optional[int] = None   # SWA window (tokens), None = full
     rope_theta: float = 10_000.0
     use_rope: bool = True
+    # softmax scale of the scores; None = 1/sqrt(d_head)
+    softmax_scale: Optional[float] = None
 
 
 @dataclass(frozen=True)
@@ -40,6 +42,9 @@ class MoEConfig:
     # 'ep'  : experts sharded over the model axis (expert parallelism)
     expert_sharding: str = "tp"
     aux_loss_weight: float = 0.01
+    # width of one shared SwiGLU expert every token runs beside the
+    # routed ones; None = none
+    d_ff_shared: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -81,6 +86,14 @@ class ModelConfig:
     # [audio]/[vlm]: stub frontend supplies embeddings directly
     frontend: Optional[str] = None  # None | 'audio_frames' | 'vision_patches'
     max_position_embeddings: int = 1_048_576
+    # muP multipliers (None = none): the embedding's output, each
+    # residual branch before its add, and the logits (divided by
+    # ``logits_scaling``)
+    embedding_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
+    # epsilon of every RMSNorm / LayerNorm and of Mamba's gated norm
+    norm_eps: float = 1e-6
 
     @property
     def pattern_period(self) -> int:

@@ -19,15 +19,23 @@ _ARCH_MODULES = {
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1p5_large",
 }
 
+#: port-only architectures: reachable through ``get_config``, outside
+#: ``list_archs`` (and so outside the dry run's cells), which the
+#: reference's registry lists too
+_PORT_ONLY_MODULES = {
+    "granite-4.0-h-small":  "repro_torch.configs.granite_4p0_h_small",
+}
+
 
 def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
 
 
 def get_config(arch: str) -> ArchConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
-    mod = importlib.import_module(_ARCH_MODULES[arch])
+    modules = {**_ARCH_MODULES, **_PORT_ONLY_MODULES}
+    if arch not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(modules)}")
+    mod = importlib.import_module(modules[arch])
     cfg: ArchConfig = mod.CONFIG
     assert cfg.model.name == arch, (cfg.model.name, arch)
     return cfg

@@ -102,10 +102,19 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
     return torch.where(ok, zero, NEG_INF)
 
 
-def sdpa(q, k, v, bias, *, softcap_val: Optional[float]) -> torch.Tensor:
-    """q (B,Sq,H,dh), k/v (B,Skv,H,dh), bias broadcastable to (B,H,Sq,Skv)."""
-    dh = q.shape[-1]
-    scale = 1.0 / math.sqrt(dh)
+def softmax_scale(att: AttentionConfig) -> float:
+    """The scores' scale: the config's, else 1/sqrt(d_head)."""
+    if att.softmax_scale is not None:
+        return att.softmax_scale
+    return 1.0 / math.sqrt(att.d_head)
+
+
+def sdpa(q, k, v, bias, *, softcap_val: Optional[float],
+         scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,H,dh), k/v (B,Skv,H,dh), bias broadcastable to (B,H,Sq,Skv).
+    ``scale``: the scores' (default 1/sqrt(dh))."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
     if softcap_val is not None:
         scores = torch.tanh(scores / softcap_val) * softcap_val
@@ -141,7 +150,8 @@ def _attend(att: AttentionConfig, q, k, v, positions, *,
     if S <= block_q:
         bias = _mask_bias(positions, kv_pos, causal=causal, window=window)
         return sdpa(q, kf, vf, bias[None, None],
-                    softcap_val=att.logit_softcap)
+                    softcap_val=att.logit_softcap,
+                    scale=att.softmax_scale)
     assert S % block_q == 0, (S, block_q)
     blocks = []
     for i in range(S // block_q):
@@ -149,7 +159,8 @@ def _attend(att: AttentionConfig, q, k, v, positions, *,
         bias = _mask_bias(positions[sl], kv_pos, causal=causal,
                           window=window)
         blocks.append(sdpa(q[:, sl], kf, vf, bias[None, None],
-                           softcap_val=att.logit_softcap))
+                           softcap_val=att.logit_softcap,
+                           scale=att.softmax_scale))
     return torch.cat(blocks, dim=1)
 
 
@@ -162,7 +173,8 @@ def attention_forward_flash(p: dict, att: AttentionConfig, x: torch.Tensor,
     from repro_torch.kernels.flash_attention import flash_attention
     B, S, d = x.shape
     q, k, v = _qkv(p, att, x, positions)
-    out = flash_attention(q, k, v, causal, window, att.logit_softcap)
+    out = flash_attention(q, k, v, causal, window, att.logit_softcap,
+                          att.softmax_scale)
     out = out.reshape(B, S, att.n_heads * att.d_head) @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -207,7 +219,7 @@ def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
     # the reference's preferred_element_type=fp32 einsums do.
     G = att.n_heads // att.n_kv_heads
     qg = q.reshape(B, att.n_kv_heads, G, att.d_head)
-    scale = 1.0 / math.sqrt(att.d_head)
+    scale = softmax_scale(att)
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(k.dtype).float(),
                      k.float()) * scale
     if att.logit_softcap is not None:
@@ -264,7 +276,8 @@ def attention_forward_sharded(ctx, p: dict, att: AttentionConfig, x,
         q, k, v = _qkv(pl, att, h, pos)
         if use_flash:
             out = flash_attention_shard(q, k, v, causal, window,
-                                        att.logit_softcap, head0=head0,
+                                        att.logit_softcap,
+                                        att.softmax_scale, head0=head0,
                                         n_heads=H, n_kv=KV)
         else:
             ks, vs = kv_for_heads(k, v, head0, q.shape[2], H, KV)
@@ -311,7 +324,7 @@ def attention_decode_sharded(ctx, p: dict, att: AttentionConfig, x,
     index = int(cache.index)
     groups = [ctx.group(a) for a in seq_axes]
     G = att.n_heads // att.n_kv_heads
-    scale = 1.0 / math.sqrt(att.d_head)
+    scale = softmax_scale(att)
 
     def body(h, kc, vc, *wl):
         pl = dict(zip(keys, wl))

@@ -8,6 +8,7 @@ parameters convert from the JAX package by copy.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
@@ -51,8 +52,9 @@ def init_norm(cfg: ModelConfig, d: int, dtype, *, device) -> dict:
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm or LayerNorm, at the config's ``norm_eps``."""
+    eps = cfg.norm_eps
     dt = x.dtype
     xf = x.float()
     if cfg.norm == "rmsnorm":
@@ -72,6 +74,32 @@ def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Profiler ranges
+# ---------------------------------------------------------------------------
+
+def profiler_range(name: str):
+    """A ``torch.profiler`` range of ``name`` on the host's timeline. It
+    is one of function scope: ``record_function``'s user scope would also
+    be projected onto the device's timeline, where a device trace counts
+    it as device work. ``_RecordFunctionFast`` is private API, checked
+    on torch 2.11.0+cu128 and 2.13.0+cpu; ``tests/test_torch_serve_spans.py``
+    fails with a plain message where a torch release drops it."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process (a traced
+    run's sub-window)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def profiled(name: str):
+    """The model's own ranges (``model.mamba``): :func:`profiler_range`
+    while a profiler records, and nothing entered otherwise."""
+    return profiler_range(name) if profiling() else nullcontext()
 
 
 # ---------------------------------------------------------------------------

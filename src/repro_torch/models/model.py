@@ -55,8 +55,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_ffn, apply_norm, dense_init,
-                                       init_ffn, init_norm, softcap,
-                                       truncated_normal)
+                                       init_ffn, init_norm, profiled,
+                                       softcap, truncated_normal)
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import LP, NO_MESH, ParallelCtx
 
@@ -197,7 +197,8 @@ def _layer_axes(acfg: ArchConfig, li: int) -> Params:
         return p
     if cfg.moe_at(pos):
         es = acfg.parallel.expert_sharding or cfg.moe.expert_sharding
-        f = moe_lib.moe_param_logical_axes(es)
+        f = moe_lib.moe_param_logical_axes(
+            es, cfg.moe.d_ff_shared is not None)
         if cfg.ffn_activation not in ("swiglu", "geglu"):
             f = {k: v for k, v in f.items() if k != "w_gate"}
     else:
@@ -269,7 +270,7 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
     else:
         h, new_state = _attention(cfg, li, p, h, state, mode, positions,
                                   max_seq, use_flash, ctx)
-    x = _constrain_act(ctx, x + h.to(x.dtype))
+    x = _constrain_act(ctx, x + _branch(cfg, h, x))
     h2 = _norm(ctx, cfg, p["norm2"], x)
     if kind == "rwkv":   # the channel mix in place of the FFN
         h2, cm_new = _rwkv_channel_mix(ctx, p["mixer"], h2, state)
@@ -281,8 +282,17 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
                                     dropless=(mode == "decode"), ctx=ctx)
     else:
         h2 = _ffn(ctx, cfg, p["ffn"], h2)
-    x = _constrain_act(ctx, x + h2.to(x.dtype))
+    x = _constrain_act(ctx, x + _branch(cfg, h2, x))
     return x, new_state, aux
+
+
+def _branch(cfg: ModelConfig, h: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """A residual branch as it is added to ``x``: times the config's
+    ``residual_multiplier`` where it has one."""
+    if cfg.residual_multiplier is not None:
+        h = h * cfg.residual_multiplier
+    return h.to(x.dtype)
 
 
 def _constrain_act(ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
@@ -416,16 +426,18 @@ def _mamba_mix(cfg: ModelConfig, p: Params, h: torch.Tensor,
                ctx: ParallelCtx = NO_MESH
                ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Prefill / train: the chunked SSD; decode: the exact one-token
-    recurrence."""
-    if ctx.mesh is not None:
-        return _mamba_mix_sharded(ctx, cfg, p, h, state, mode)
-    mixer_state = state["mixer"] if state is not None else None
-    if mode == "decode":
-        h, s = ssm_lib.mamba_step(cfg, cfg.ssm, p["mixer"], h, mixer_state)
-    else:
-        h, s = ssm_lib.mamba_forward(cfg, cfg.ssm, p["mixer"], h,
-                                     mixer_state)
-    return h, ({"mixer": s} if mode != "train" else None)
+    recurrence. While a profiler records, the range ``model.mamba``."""
+    with profiled("model.mamba"):
+        if ctx.mesh is not None:
+            return _mamba_mix_sharded(ctx, cfg, p, h, state, mode)
+        mixer_state = state["mixer"] if state is not None else None
+        if mode == "decode":
+            h, s = ssm_lib.mamba_step(cfg, cfg.ssm, p["mixer"], h,
+                                      mixer_state)
+        else:
+            h, s = ssm_lib.mamba_forward(cfg, cfg.ssm, p["mixer"], h,
+                                         mixer_state)
+        return h, ({"mixer": s} if mode != "train" else None)
 
 
 # ---------------- the recurrent mixers over a mesh ------------------------
@@ -705,6 +717,8 @@ def forward(acfg: ArchConfig, params: Params, *,
     if mode == "prefill" and max_seq is None:
         max_seq = S
     x = _embed_in(ctx, cfg, params, tokens, embeds, compute_dtype)
+    if cfg.embedding_multiplier is not None:
+        x = x * cfg.embedding_multiplier
     positions = None  # decode: attention reads positions from its cache
     if mode != "decode":
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -733,8 +747,7 @@ def logits_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
     cfg = acfg.model
     head = _head(ctx, cfg, params)
     if ctx.mesh is None:
-        logits = hidden @ head.to(hidden.dtype)
-        return softcap(logits, cfg.final_logit_softcap)
+        return _out_logits(cfg, hidden @ head.to(hidden.dtype))
     tied = cfg.tie_embeddings
     split = sh.batch_split(ctx, hidden)
     vocab_split = vocab_axis(cfg) is not None
@@ -745,11 +758,19 @@ def logits_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
 
     def body(h, w):
         w = (w.T if tied else w).to(h.dtype)
-        return softcap(h @ w, cfg.final_logit_softcap)
+        return _out_logits(cfg, h @ w)
     logits = sh.shard_map(ctx, body, (hidden, head), (tuple(out_pl),),
                           split=split)
     b_ax = "batch" if hidden.shape[0] % ctx.n_batch_shards == 0 else None
     return ctx.constrain(logits, b_ax, None, "vocab")
+
+
+def _out_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The head's product as the model's logits: divided by the config's
+    ``logits_scaling`` where it has one, then soft-capped where it caps."""
+    if cfg.logits_scaling is not None:
+        logits = logits / cfg.logits_scaling
+    return softcap(logits, cfg.final_logit_softcap)
 
 
 def loss_fn(acfg: ArchConfig, params: Params, hidden: torch.Tensor,
@@ -807,7 +828,7 @@ def _ce_sums(cfg: ModelConfig, hidden, labels, head, chunk: int,
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
-        logits = softcap(h @ head, cfg.final_logit_softcap).float()
+        logits = _out_logits(cfg, h @ head).float()
         if vocab is None:
             lse = torch.logsumexp(logits, dim=-1)
             true_logit = logits.gather(

@@ -24,17 +24,23 @@ The combine gathers each token's k outputs in flat (token, slot) order
 and sums them, where the reference scatter-adds them in sorted order:
 the same sum, in an order that does not depend on a device's atomics,
 so a prefill on the card gives the same bits every run.
+
+A config with ``d_ff_shared`` adds one shared SwiGLU expert that every
+token runs (Granite-4.0-H), summed onto the routed experts' output; over
+a mesh its ``d_ff`` is split over ``model`` under either expert
+sharding, so its partial sums join the routed ones'. While a profiler
+records, :data:`DROPS` counts the assignments past capacity.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import _mm, activation, dense_init, \
-    truncated_normal
+from repro_torch.models.layers import _mm, activation, apply_ffn, \
+    dense_init, profiling, truncated_normal
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import LP, NO_MESH, ParallelCtx
 
@@ -60,16 +66,59 @@ def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
          "w_down": experts(f, d, E * f)}
     if cfg.ffn_activation in ("swiglu", "geglu"):
         p["w_gate"] = experts(d, f, E * d)
+    if moe.d_ff_shared is not None:
+        fs = moe.d_ff_shared
+        p["shared_gate"] = dense_init(d, fs, dtype, **kw)
+        p["shared_up"] = dense_init(d, fs, dtype, **kw)
+        p["shared_down"] = dense_init(fs, d, dtype, **kw)
     return p
 
 
-def moe_param_logical_axes(ctx_es: str) -> dict:
+def moe_param_logical_axes(ctx_es: str, shared: bool = False) -> dict:
+    """``shared``: the layer has a shared expert, whose ``d_ff`` splits
+    over ``model`` under either expert sharding."""
     e = "expert" if ctx_es == "ep" else None
     ff = None if ctx_es == "ep" else "d_ff"
-    return {"router": LP(None, None),
+    axes = {"router": LP(None, None),
             "w_up": LP(e, "fsdp", ff),
             "w_gate": LP(e, "fsdp", ff),
             "w_down": LP(e, ff, "fsdp")}
+    if shared:
+        axes.update(shared_gate=LP("fsdp", "d_ff"),
+                    shared_up=LP("fsdp", "d_ff"),
+                    shared_down=LP("d_ff", "fsdp"))
+    return axes
+
+
+class DropCount:
+    """The prompt assignments routed past their expert's capacity,
+    counted while a profiler records (a traced run's sub-window) and
+    never otherwise: ``dropped`` adds up on the device and ``routed``
+    on the host, so counting never waits for the device, and ``read``
+    copies the count to the host, once, after the run. One for the
+    process, as the profiler whose window it follows is."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.dropped: Optional[torch.Tensor] = None
+        self.routed = 0
+
+    def add(self, keep: torch.Tensor) -> None:
+        """``keep``: the (assignments,) kept mask of one dispatch."""
+        n = (~keep).sum()
+        self.dropped = n if self.dropped is None else self.dropped.add_(n)
+        self.routed += keep.numel()
+
+    def read(self) -> Tuple[int, int]:
+        """(dropped, routed) so far."""
+        return (0 if self.dropped is None else int(self.dropped),
+                self.routed)
+
+
+#: the process's count of prefill assignments past capacity
+DROPS = DropCount()
 
 
 def _capacity(moe: MoEConfig, n_tokens: int, dropless: bool) -> int:
@@ -152,6 +201,9 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
     dest = torch.empty_like(dest_sorted).index_copy_(0, order, dest_sorted)
     keep = torch.empty_like(keep_sorted).index_copy_(0, order, keep_sorted)
 
+    if not dropless and es != "ep" and profiling():
+        DROPS.add(keep)
+
     # kept rows are distinct; the overflow row only ever receives zeros
     rows = torch.where(keep[:, None], x[flat_t], 0)
     buf = x.new_zeros((n_e * C + 1, d)).index_put((dest,), rows)
@@ -161,6 +213,10 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
     w = (top_w.reshape(-1) * keep).to(out_buf.dtype)
     y = (out_buf[dest] * w[:, None]).to(x.dtype).reshape(T, k, d)
     y = torch.sum(y, dim=1)
+    if moe.d_ff_shared is not None:
+        y = y + apply_ffn(cfg, {"w_gate": p["shared_gate"],
+                                "w_up": p["shared_up"],
+                                "w_down": p["shared_down"]}, x)
 
     # Switch-style load-balance aux loss, over every assignment (dropped
     # ones too)
@@ -185,7 +241,7 @@ def apply_moe(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
         return out.reshape(B, S, d), aux
 
     es, mx = ctx.expert_sharding, ctx.model_axis
-    la = moe_param_logical_axes(es)
+    la = moe_param_logical_axes(es, moe.d_ff_shared is not None)
     keys = sorted(p)
     # the PS pull: fsdp shards gathered over the batch axes
     w = [ctx.constrain(p[k], *(None if a == "fsdp" else a for a in la[k]))

@@ -357,11 +357,11 @@ def _mamba_proj(p, x):
             _mm(x, p["dt_proj"]))
 
 
-def _mamba_post(p, y, z, x_heads, B, S, di, norm_group=None):
-    """``norm_group``: the process group over which ``d_inner`` is split
-    (None: this rank holds all of it). The gated RMSNorm's mean runs
-    over the whole ``d_inner``, so a shard sums its squares and the sums
-    are added across the group."""
+def _mamba_post(p, y, z, x_heads, B, S, di, eps, norm_group=None):
+    """``eps``: the gated RMSNorm's. ``norm_group``: the process group
+    over which ``d_inner`` is split (None: this rank holds all of it).
+    The gated RMSNorm's mean runs over the whole ``d_inner``, so a shard
+    sums its squares and the sums are added across the group."""
     y = y + p["d_skip"][None, None, :, None] * x_heads
     y = y.reshape(B, S, di)
     # gated RMSNorm
@@ -372,7 +372,7 @@ def _mamba_post(p, y, z, x_heads, B, S, di, norm_group=None):
         var = sh.sum_partials(torch.sum(torch.square(yz), dim=-1,
                                         keepdim=True), norm_group) / (
             di * sh.dist.get_world_size(norm_group))
-    y = yz * torch.rsqrt(var + 1e-6) * p["norm"].float()
+    y = yz * torch.rsqrt(var + eps) * p["norm"].float()
     # the reference casts down to the compute dtype BEFORE the
     # out projection
     return _mm(y.to(p["out_proj"].dtype), p["out_proj"])
@@ -407,7 +407,8 @@ def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     if padn:
         y, z, x_heads = y[:, :S], z[:, :S], x_heads[:, :S]
         xs_pre, bc_pre = xs_pre[:, :S], bc_pre[:, :S]
-    out = _mamba_post(p, y, z, x_heads, B, S, di, norm_group)
+    out = _mamba_post(p, y, z, x_heads, B, S, di, cfg.norm_eps,
+                      norm_group)
     W = ssm.d_conv
 
     def hist(carry, pre):
@@ -443,7 +444,8 @@ def mamba_step(cfg: ModelConfig, ssm: SSMConfig, p: dict, x: torch.Tensor,
     h = state["h"] * a[:, :, None, None] + \
         xdt[..., None] * B_[:, 0].float()[:, None, None, :]
     y = torch.einsum("bn,bhpn->bhp", C_[:, 0].float(), h)[:, None]
-    out = _mamba_post(p, y, z, x_heads, B, 1, di, norm_group)
+    out = _mamba_post(p, y, z, x_heads, B, 1, di, cfg.norm_eps,
+                      norm_group)
     return out, {"h": h, "conv": conv_in[:, -(W - 1):, :],
                  "conv_bc": conv_in_bc[:, -(W - 1):, :]}
 

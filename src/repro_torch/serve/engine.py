@@ -58,6 +58,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as M
+from repro_torch.models.layers import profiler_range
 from repro_torch.rpc.interceptors import (ClientInterceptor,
                                           MetricsInterceptor,
                                           is_resource_exhausted)
@@ -583,16 +584,6 @@ def serve_handlers(scheduler: ServeScheduler):
         return pump
 
     return {"generate": generate, "generate_stream": generate_stream}
-
-
-def profiler_range(name: str):
-    """A ``torch.profiler`` range of ``name`` on the host's timeline. It
-    is one of function scope: ``record_function``'s user scope would also
-    be projected onto the device's timeline, where a device trace counts
-    it as device work. ``_RecordFunctionFast`` is private API, checked
-    on torch 2.11.0+cu128 and 2.13.0+cpu; ``tests/test_torch_serve_spans.py``
-    fails with a plain message where a torch release drops it."""
-    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def _ranged(tracer):

@@ -74,9 +74,12 @@ def test_capacity_matches_reference(T, dropless):
         full = get_reduced_config(arch).model.moe
         for m in (full, dataclasses.replace(full, capacity_factor=1.25,
                                             num_experts=7)):
+            # every field the reference has; the port-only shared
+            # expert's width is unset in these architectures
+            assert m.d_ff_shared is None
             jm = dataclasses.replace(jcfg, **{
                 f.name: getattr(m, f.name)
-                for f in dataclasses.fields(m)})
+                for f in dataclasses.fields(jcfg)})
             assert moe._capacity(m, T, dropless) == \
                 jax_moe._capacity(jm, T, dropless)
 

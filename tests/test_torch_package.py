@@ -40,8 +40,54 @@ COPIED = sorted(
 # which the fabric's flush and the scheduler's step enter. Those gates
 # are also why the copies split a few lines (``Name \`` + ``(args)``),
 # which leaves the syntax tree unchanged, so copies are compared as
-# syntax trees.
+# syntax trees. The configs carry port-only fields, each defaulting to
+# the reference's behaviour (a shared expert, a softmax scale, the muP
+# multipliers and the norms' epsilon: Granite-4.0-H's mechanisms), and
+# the registry a port-only entry kept out of ``list_archs`` (so out of
+# every test and dry-run cell that holds the port to the reference).
 DIFFERENCES = {
+    "configs/base.py": [
+        ("""    use_rope: bool = True
+    # softmax scale of the scores; None = 1/sqrt(d_head)
+    softmax_scale: Optional[float] = None
+""", """    use_rope: bool = True
+"""),
+        ("""    aux_loss_weight: float = 0.01
+    # width of one shared SwiGLU expert every token runs beside the
+    # routed ones; None = none
+    d_ff_shared: Optional[int] = None
+""", """    aux_loss_weight: float = 0.01
+"""),
+        ("""    max_position_embeddings: int = 1_048_576
+    # muP multipliers (None = none): the embedding's output, each
+    # residual branch before its add, and the logits (divided by
+    # ``logits_scaling``)
+    embedding_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
+    # epsilon of every RMSNorm / LayerNorm and of Mamba's gated norm
+    norm_eps: float = 1e-6
+""", """    max_position_embeddings: int = 1_048_576
+"""),
+    ],
+    "configs/registry.py": [
+        ("""
+#: port-only architectures: reachable through ``get_config``, outside
+#: ``list_archs`` (and so outside the dry run's cells), which the
+#: reference's registry lists too
+_PORT_ONLY_MODULES = {
+    "granite-4.0-h-small":  "repro.configs.granite_4p0_h_small",
+}
+""", ""),
+        ("""    modules = {**_ARCH_MODULES, **_PORT_ONLY_MODULES}
+    if arch not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(modules)}")
+    mod = importlib.import_module(modules[arch])
+""", """    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
+    mod = importlib.import_module(_ARCH_MODULES[arch])
+"""),
+    ],
     "rpc/framing.py": [
         ("""        from repro.kernels.payload_pack import pack as kpack, to_card
         packed, _ = kpack(to_card(parts))

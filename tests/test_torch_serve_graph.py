@@ -7,7 +7,8 @@ graphed engine's greedy tokens equal to a plain eager loop over
 ``make_decode_step`` on reduced Mixtral (MoE), Gemma-2 (a windowed ring
 past its wrap, softcap) and RWKV-6 (recurrent states), a reused slot to a
 fresh engine, a preempted and rebuilt request to an uninterrupted one,
-and the engine's counters to the slots and decodes. Imports torch only,
+and the engine's counters to the slots and decodes; and a small
+Granite-4.0-H, whose slot holds a KV cache beside Mamba-2 states. Imports torch only,
 so the card's tests run where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_serve_graph.py
@@ -20,7 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import rpc
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.launch import steps
 from repro_torch.models import init_params
 from repro_torch.models.attention import KVCache
@@ -59,6 +60,27 @@ def _engine(arch, device, dtype="float32", **cfg):
                          generator=torch.Generator(device).manual_seed(0))
     return ServeEngine(acfg, params, ServeConfig(
         max_seq=MAX_SEQ, max_new_tokens=16, **cfg))
+
+
+def _granite_engine(device):
+    """Granite-4.0-H at a small size in float32: one period of 10 (nine
+    Mamba-2 layers, attention at position 5), 8 experts top-3 beside a
+    shared expert, the multipliers as published."""
+    a = get_config("granite-4.0-h-small")
+    m = a.model
+    model = dataclasses.replace(
+        m, d_model=64, d_ff=24, vocab_size=128, max_position_embeddings=4096,
+        attention=dataclasses.replace(m.attention, n_heads=4, n_kv_heads=2,
+                                      d_head=16, softmax_scale=0.125),
+        moe=dataclasses.replace(m.moe, num_experts=8, top_k=3,
+                                d_ff_expert=24, d_ff_shared=32),
+        ssm=dataclasses.replace(m.ssm, d_state=16))
+    acfg = a.replace(model=model, train=dataclasses.replace(
+        a.train, param_dtype="float32", compute_dtype="float32"))
+    params = init_params(acfg, device=device,
+                         generator=torch.Generator(device).manual_seed(0))
+    return ServeEngine(acfg, params, ServeConfig(max_seq=MAX_SEQ,
+                                                 max_new_tokens=16))
 
 
 def _prompt(plen, seed, rows=1):
@@ -161,6 +183,28 @@ def test_graphed_tokens_equal_an_eager_loop_on_the_card(cuda, arch):
     assert eng.counters == {"graph_captures": 1,
                             "graph_replays": 2 * (n - 1) - 1,
                             "eager_decodes": 0}
+
+
+@pytest.mark.gpu
+def test_graphed_granite_tokens_equal_an_eager_loop_on_the_card(cuda):
+    """Both kinds of state live in the slot one graph reads and writes:
+    the attention layer's KV cache and the Mamba-2 layers' SSM states
+    and conv histories; the graphed tokens equal an eager loop's."""
+    eng = _granite_engine(cuda)
+    prompt = _prompt(70, 3)
+    got = eng.generate(prompt, 9)
+    np.testing.assert_array_equal(got, _eager_tokens(eng, prompt, 9))
+    assert eng.counters == {"graph_captures": 1, "graph_replays": 7,
+                            "eager_decodes": 0}
+    slot, = eng._slots[1]
+    kinds = eng.acfg.model.layer_pattern
+    for st, kind in zip(slot.states, kinds):
+        if kind == "attn":
+            assert isinstance(st["mixer"], KVCache)
+        else:
+            assert set(st["mixer"]) == {"h", "conv", "conv_bc"}
+            assert st["mixer"]["h"].shape == (1, 2, 64, 16)
+    assert kinds.count("attn") == 1 and kinds.count("mamba") == 9
 
 
 @pytest.mark.gpu

@@ -154,7 +154,7 @@ def test_the_private_range_of_function_scope_is_there():
                    "_RecordFunctionFast", None)
     assert fast is not None, (
         f"torch {torch.__version__} has no "
-        f"torch._C._profiler._RecordFunctionFast: serve/engine.py "
+        f"torch._C._profiler._RecordFunctionFast: models/layers.py "
         f"profiler_range needs another range of function scope")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with engine_mod.profiler_range("serve.probe"):
