@@ -43,6 +43,13 @@ Phases (any failure raises, and the script exits non-zero):
    the model's strided ``(B, S, H, hs)`` entry against the folded plain
    result, then kernel / plain times there and the kernel with the
    layout's fold copies against the strided kernel without them;
+4b. the MoE decode's routed-expert GLU FFN (``[moe_decode]``, K5):
+   the kernel against ``moe_decode_plain`` at one token of Mixtral-8x7B
+   (top-2 of 8 experts 4096 x 14336) and of Granite-4.0-H-Small (top-10
+   of 72 experts 4096 x 768) in bf16, within K5_TOL, which two controls
+   (one assignment's expert changed, the activation left out) must
+   exceed; then kernel / plain / dense (the three batched products over
+   every expert) times there beside the routed experts' byte bound;
 5. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
    through the port's serve entry point, ``--batch 4 --prompt-len 512
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
@@ -84,7 +91,10 @@ Phases (any failure raises, and the script exits non-zero):
    Jamba-1.5-Large (5 of 72: positions 0-4 of its period, 4 Mamba and 1
    attention layer, MoE at 1 and 3) and Kimi-K2 (1 of 61), the same
    three ways: greedy tokens must agree, K3 must launch once an
-   attention layer a prefill, all on wgmma, and K4 never; then Gemma-2-9B
+   attention layer a prefill, all on wgmma, and K4 never; K5 must be
+   called once a MoE layer a decode step run outside a graph replay
+   where the decode's T*k < E (Jamba's 8 of 16, Kimi-K2's 32 of 384;
+   Mixtral's 8 = E keeps the dispatch), and never elsewhere; then Gemma-2-9B
    at full width and depth (42 layers, dh 256, softcaps, a window of 4096
    on alternate layers), the same three ways, 42 wgmma K3 launches a
    prefill;
@@ -284,7 +294,8 @@ E2E_CONTROLS = {"window S - 64": {"sliding_window": PROMPT_LEN - 64},
 # The reduced model in fp32: the kernel and the plain path are both fp32
 # throughout, so they differ only in summation order.
 E2E_FP32_TOL = 1e-4
-KERNEL_SOURCES = ("flash_attention", "payload_pack", "rwkv6_scan")
+KERNEL_SOURCES = ("flash_attention", "payload_pack", "rwkv6_scan",
+                  "moe_decode")
 # [cluster]: Qwen3-8B on a 2 ps x 2 worker cluster, 2 rounds; in each,
 # each worker streams one of the serve CLI's request prompts (by index)
 # in the same flush. Per policy, the dispatch counts per link it must
@@ -328,6 +339,16 @@ RWKV_E2E_REL_TOL = 8.5e-2
 # none.
 MOE_SERVE = (("mixtral-8x7b", 8, 8), ("jamba-1.5-large-398b", 5, 1),
              ("kimi-k2-1t-a32b", 1, 1))
+# [moe_decode]: K5 at one decode token of the two serve cells' models,
+# bf16, as (k, d, f, E): Mixtral-8x7B's top-2 of 8 experts 4096 x 14336
+# and Granite-4.0-H-Small's top-10 of 72 experts 4096 x 768. Kernel vs
+# plain within K5_TOL (atol and rtol, as the card tests hold it; outputs
+# near 1): both accumulate in fp32 and round at the same points, so they
+# differ by a bf16 rounding flip at most. The controls, one assignment's
+# expert changed and the activation left out, must exceed it.
+K5_SHAPES = {"mixtral-8x7b": (2, 4096, 14336, 8),
+             "granite-4.0-h-small": (10, 4096, 768, 72)}
+K5_TOL = 2e-2
 # Gemma-2-9B served whole (42 layers of 16 q / 8 kv heads of 256, softcap
 # 50, a window of 4096 on alternate layers, GeGLU, tied embeddings over a
 # 256,000-token vocabulary, final logit softcap 30): 9.2 B parameters,
@@ -981,6 +1002,87 @@ def phase_wkv(name: str) -> dict:
             "strided_ms": strided_ms}
 
 
+def phase_moe_decode(name: str) -> dict:
+    """K5 against ``moe_decode_plain`` at K5_SHAPES, with its two
+    controls, then kernel / plain / dense times (L2 flushed) beside the
+    routed experts' byte bound. Returns the ``kernels`` line's entry:
+    Mixtral's shape at the top level, Granite's under its name."""
+    from repro_torch.kernels.moe_decode import moe_decode_ffn, \
+        moe_decode_plain
+
+    def off(out, ref) -> float:
+        """The largest |out - ref| past K5_TOL (1 + |ref|): <= 0 within."""
+        out, ref = out.float(), ref.float()
+        return ((out - ref).abs() - K5_TOL * (1 + ref.abs())).max().item()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entries = {}
+    for shape, (k, d, f, E) in K5_SHAPES.items():
+        ws = [(torch.randn(sz, device="cuda", generator=gen) * n ** -0.5)
+              .bfloat16() for sz, n in (((E, d, f), d), ((E, d, f), d),
+                                        ((E, f, d), f))]
+        x = torch.randn(1, d, device="cuda", generator=gen).bfloat16()
+        rows = x.expand(k, d)              # one token's row for its k slots
+        ids = torch.randperm(E, device="cuda", generator=gen)[:k]
+        before = moe_decode_ffn.launches
+        out = moe_decode_ffn(rows, ids, *ws)
+        torch.cuda.synchronize()
+        if moe_decode_ffn.launches != before + 1:
+            raise AssertionError(f"[moe_decode] {shape}: the kernel was "
+                                 f"not launched")
+        ref = moe_decode_plain(rows, ids, *ws, "silu")
+        wrong = ids.clone()
+        wrong[0] = (wrong[0] + 1) % E
+        r = rows[:, None, :]
+        controls = {
+            "an expert changed": moe_decode_plain(rows, wrong, *ws, "silu"),
+            "no activation": torch.bmm(torch.bmm(r, ws[0][ids])
+                                       * torch.bmm(r, ws[1][ids]),
+                                       ws[2][ids])[:, 0]}
+        err = (out.float() - ref.float()).abs().max().item()
+        past = {c: off(out, v) for c, v in controls.items()}
+        print(f"[moe_decode] {shape} one token, top-{k} of {E} experts "
+              f"{d} x {f} bf16: max|kernel - plain| {err:.3e} "
+              f"(past K5_TOL: {off(out, ref):.3e}); controls past it: "
+              + ", ".join(f"{c} {v:.3e}" for c, v in past.items()))
+        if off(out, ref) > 0:
+            raise AssertionError(f"[moe_decode] {shape}: kernel vs plain "
+                                 f"{err:.3e} past K5_TOL")
+        if any(v <= 0 for v in past.values()):
+            raise AssertionError(f"[moe_decode] {shape}: a control stays "
+                                 f"within K5_TOL: {past}")
+        buf = torch.zeros(E, 1, d, device="cuda", dtype=torch.bfloat16)
+        buf[ids, 0] = x[0]
+
+        def dense():
+            inner = torch.nn.functional.silu(torch.bmm(buf, ws[0])) \
+                * torch.bmm(buf, ws[1])
+            return torch.bmm(inner, ws[2])
+
+        ms = gpu_ms(lambda: moe_decode_ffn(rows, ids, *ws))
+        plain_ms = gpu_ms(lambda: moe_decode_plain(rows, ids, *ws, "silu"))
+        dense_ms = gpu_ms(dense)
+        nbytes = k * 3 * d * f * 2
+        bound_ms = nbytes / HBM_BPS * 1e3
+        print(f"[moe_decode] {shape} on {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, dense (all {E} experts, "
+              f"{E * 3 * d * f * 2 / 1e6:.1f} MB) {dense_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB at "
+              f"{HBM_BPS / 1e12} TB/s; the kernel at "
+              f"{100 * bound_ms / ms:.1f} %)")
+        entries[shape] = {"shape": f"top-{k} of {E} experts {d} x {f} "
+                                   f"bf16, one token",
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": "bytes",
+                          "library_ms": dense_ms}
+        del ws, buf, out, ref, controls
+        torch.cuda.empty_cache()
+    return {"name": "moe_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_decode.cu",
+            "replaces": None, **entries["mixtral-8x7b"],
+            "granite-4.0-h-small": entries["granite-4.0-h-small"]}
+
+
 def _frames():
     """The frames of tests/test_torch_package.py, zero-size buffers
     included."""
@@ -1368,10 +1470,15 @@ def phase_serve(name: str, args: list, kernel, layers: int,
     layers where given (``cut_depth``). Returns ``kernel``'s launches,
     which must be ``layers`` per prefill ("launches"), the direct path's
     engine ("engine", its weights reused by [cluster]) and its tokens
-    ("direct", one (BATCH, NEW_TOKENS) array a request) and the direct
-    path's ms a decode step ("decode_ms")."""
+    ("direct", one (BATCH, NEW_TOKENS) array a request), the direct
+    path's ms a decode step ("decode_ms") and K5's calls ("k5"): one a
+    MoE layer each decode step the model runs (eager, or the warm-up and
+    the capture of a slot's graph, whose replays rerun the captured
+    launches) where the decode's BATCH * top-k is under the experts, and
+    none elsewhere."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_decode import moe_decode_ffn
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.launch import serve
     from repro_torch.optim.optimizer import tree_leaves
@@ -1381,8 +1488,10 @@ def phase_serve(name: str, args: list, kernel, layers: int,
              ("direct", ["--no-rpc"]))
     outputs, prefills, kept = {}, 0, None
     counted = (flash_attention, rwkv6_scan)
-    for fn in counted:
+    for fn in counted + (moe_decode_ffn,):
         fn.launches = 0
+    steps = dict.fromkeys(("eager_decodes", "graph_captures",
+                           "graph_replays"), 0)
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
     for label, extra in modes:
@@ -1418,6 +1527,9 @@ def phase_serve(name: str, args: list, kernel, layers: int,
               f"on {name}")
         outputs[label] = res["outputs"]
         decode_ms = 1e3 * sum(ops["decode"]) / len(ops["decode"])
+        for c in steps:
+            steps[c] += eng.counters[c]
+        mcfg = eng.acfg.model
         kept = eng
         del res, eng, ops
         _free()        # the engine and its schedulers refer to each other
@@ -1447,8 +1559,27 @@ def phase_serve(name: str, args: list, kernel, layers: int,
     print(f"[serve] {arch} {kernel.__name__} launches "
           f"{launches[kernel.__name__]} = {layers} x {prefills} prefills "
           f"(all launches: {launches}; flash by path: {by_path})")
+    moe_layers = sum(mcfg.moe_at(i) for i in range(mcfg.num_layers))
+    routed = mcfg.moe is not None and \
+        BATCH * mcfg.moe.top_k < mcfg.moe.num_experts
+    run = steps["eager_decodes"] + 2 * steps["graph_captures"]
+    want = moe_layers * run if routed else 0
+    if moe_decode_ffn.launches != want or (routed and not want):
+        raise AssertionError(f"[serve] {arch}: K5 calls "
+                             f"{moe_decode_ffn.launches}, {want} expected "
+                             f"({moe_layers} MoE layers, decode steps "
+                             f"{steps}, routed {routed})")
+    if mcfg.moe is not None:
+        print(f"[serve] {arch} K5 calls {moe_decode_ffn.launches} = "
+              + (f"{moe_layers} MoE layers x {run} decode steps run "
+                 f"outside a replay (decode T*k {BATCH * mcfg.moe.top_k} < "
+                 f"E {mcfg.moe.num_experts})" if routed else
+                 f"0 (decode T*k {BATCH * mcfg.moe.top_k} >= E "
+                 f"{mcfg.moe.num_experts}: the dispatch)")
+              + f"; decode steps {steps}")
     return {"launches": launches[kernel.__name__], "engine": kept,
-            "direct": outputs["direct"], "decode_ms": decode_ms}
+            "direct": outputs["direct"], "decode_ms": decode_ms,
+            "k5": moe_decode_ffn.launches}
 
 
 def phase_sample(name: str, greedy: list, decode_ms: float) -> int:
@@ -2719,6 +2850,8 @@ def main() -> int:
     kernel = phase_kernel(name)
     wkv = phase_wkv(name)
     packs = phase_pack(name)
+    k5 = phase_moe_decode(name)
+    k5_by_path = {}
     served = phase_serve(name, SERVE_ARGS, flash_attention, 36)
     by_path = {"serve": served["launches"],
                "cluster": phase_cluster(name, served)}
@@ -2742,6 +2875,7 @@ def main() -> int:
         served = phase_serve(name, ["--arch", arch] + SERVE_ARGS[2:],
                              flash_attention, attn_layers, depth)
         by_path[f"serve_{arch.split('-')[0]}"] = served["launches"]
+        k5_by_path[f"serve_{arch.split('-')[0]}"] = served["k5"]
         if arch == JAMBA_ARCH:
             jamba = (depth, attn_layers, served["direct"])
         del served
@@ -2780,6 +2914,8 @@ def main() -> int:
     kernel["launches"] = sum(by_path.values())
     wkv["launches_by_main_path"] = wkv_by_path
     wkv["launches"] = sum(wkv_by_path.values())
+    k5["launches_by_main_path"] = k5_by_path
+    k5["launches"] = sum(k5_by_path.values())
     phase_train_small(name)
     launches = phase_suite(name)
     swept = phase_sweep(name)
@@ -2791,7 +2927,7 @@ def main() -> int:
     phase_chain(name)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(name)
-    print(json.dumps({"kernels": [kernel] + packs + [wkv]}))
+    print(json.dumps({"kernels": [kernel] + packs + [wkv, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

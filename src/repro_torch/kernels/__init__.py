@@ -7,4 +7,7 @@
                     Pallas TPU kernels of the same name
   rwkv6_scan      — chunked RWKV-6 WKV scan (prefill), replacing the
                     Pallas TPU kernel rwkv6_scan_kernel
+  moe_decode      — the dropless MoE decode's expert FFN over its routed
+                    experts alone; replaces no TPU kernel (the reference
+                    leaves the expert products to XLA)
 """

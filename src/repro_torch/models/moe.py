@@ -30,6 +30,13 @@ token runs (Granite-4.0-H), summed onto the routed experts' output; over
 a mesh its ``d_ff`` is split over ``model`` under either expert
 sharding, so its partial sums join the routed ones'. While a profiler
 records, :data:`DROPS` counts the assignments past capacity.
+
+A dropless call with fewer assignments than experts (T*k < E: a decode
+at a few tokens) skips the dispatch: each assignment's GLU FFN reads its
+own expert's weights alone (``kernels.moe_decode``, K5 on the card),
+where the three batched products would read every expert's, and the
+combine keeps the dense path's arithmetic. The ``ep`` mesh keeps the
+dispatch, which parks other ranks' assignments.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels.moe_decode import moe_decode_ffn
 from repro_torch.models.layers import _mm, activation, apply_ffn, \
     dense_init, profiling, truncated_normal
 from repro_torch.parallel import sharding as sh
@@ -150,12 +158,16 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int,
     return order, dest, keep
 
 
+def _act(cfg: ModelConfig) -> str:
+    return "silu" if cfg.ffn_activation == "swiglu" else (
+        "gelu" if cfg.ffn_activation == "geglu" else cfg.ffn_activation)
+
+
 def _expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor
                 ) -> torch.Tensor:
     """buf: (E, C, d) -> (E, C, d) through the per-expert FFN."""
     glu = cfg.ffn_activation in ("swiglu", "geglu")
-    act = "silu" if cfg.ffn_activation == "swiglu" else (
-        "gelu" if cfg.ffn_activation == "geglu" else cfg.ffn_activation)
+    act = _act(cfg)
     up = torch.bmm(buf, p["w_up"])
     if glu:
         inner = activation(act, torch.bmm(buf, p["w_gate"])) * up
@@ -164,25 +176,29 @@ def _expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor
     return torch.bmm(inner, p["w_down"])
 
 
-def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
-               *, dropless: bool = False, n_local_experts: int = 0,
-               expert_offset: int = 0, es: str = "tp"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE over tokens x: (T, d). Returns (out (T, d), aux_loss). With
-    ``es="ep"`` the weights hold experts ``expert_offset ..
-    expert_offset + n_local_experts - 1`` only: the other assignments
-    are parked (dropped here, taken by the rank that holds them)."""
-    T, d = x.shape
-    E, k = moe.num_experts, moe.top_k
-    C = _capacity(moe, T, dropless)
+def _routed_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                flat_e: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+    """Every assignment kept, each through its own expert alone: x (T,
+    d), flat_e (T*k,) in flat (token, slot) order -> (T, d), combined as
+    the dispatch's combine does with every assignment kept."""
+    T, k = top_w.shape
+    d = x.shape[1]
+    # the token's row for each of its k slots (a view at one token)
+    rows = x[:, None, :].expand(T, k, d).reshape(T * k, d)
+    out = moe_decode_ffn(rows, flat_e, p["w_gate"], p["w_up"],
+                         p["w_down"], _act(cfg))
+    w = top_w.reshape(-1).to(out.dtype)
+    return torch.sum((out * w[:, None]).to(x.dtype).reshape(T, k, d), dim=1)
 
-    # fp32 @ the router (bf16 under compute casting) is fp32, as in JAX
-    logits = _mm(x.float(), p["router"])                 # (T, E)
-    gates = torch.softmax(logits, dim=-1)
-    top_w, top_i = torch.topk(gates, k, dim=-1)          # (T, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
 
-    flat_e = top_i.reshape(-1)                           # (T*k,)
+def _dispatched_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    flat_e: torch.Tensor, top_w: torch.Tensor, C: int, *,
+                    dropless: bool, n_local_experts: int,
+                    expert_offset: int, es: str, E: int) -> torch.Tensor:
+    """The sort-based dispatch into an (n_e, C, d) buffer, the batched
+    expert products and the combine: x (T, d) -> (T, d)."""
+    T, k = top_w.shape
+    d = x.shape[1]
     flat_t = torch.arange(T * k, device=x.device) // k
     if es == "ep":
         rel = flat_e - expert_offset
@@ -212,7 +228,35 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
                          out_buf.new_zeros((1, d))])
     w = (top_w.reshape(-1) * keep).to(out_buf.dtype)
     y = (out_buf[dest] * w[:, None]).to(x.dtype).reshape(T, k, d)
-    y = torch.sum(y, dim=1)
+    return torch.sum(y, dim=1)
+
+
+def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
+               *, dropless: bool = False, n_local_experts: int = 0,
+               expert_offset: int = 0, es: str = "tp"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE over tokens x: (T, d). Returns (out (T, d), aux_loss). With
+    ``es="ep"`` the weights hold experts ``expert_offset ..
+    expert_offset + n_local_experts - 1`` only: the other assignments
+    are parked (dropped here, taken by the rank that holds them)."""
+    T, d = x.shape
+    E, k = moe.num_experts, moe.top_k
+    C = _capacity(moe, T, dropless)
+
+    # fp32 @ the router (bf16 under compute casting) is fp32, as in JAX
+    logits = _mm(x.float(), p["router"])                 # (T, E)
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(gates, k, dim=-1)          # (T, k)
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+
+    flat_e = top_i.reshape(-1)                           # (T*k,)
+    if dropless and es != "ep" and T * k < E \
+            and cfg.ffn_activation in ("swiglu", "geglu"):
+        y = _routed_ffn(cfg, p, x, flat_e, top_w)
+    else:
+        y = _dispatched_ffn(cfg, p, x, flat_e, top_w, C, dropless=dropless,
+                            n_local_experts=n_local_experts,
+                            expert_offset=expert_offset, es=es, E=E)
     if moe.d_ff_shared is not None:
         y = y + apply_ffn(cfg, {"w_gate": p["shared_gate"],
                                 "w_up": p["shared_up"],

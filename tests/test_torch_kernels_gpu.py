@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash attention, payload pack / unpack, the
-RWKV-6 WKV scan) against their plain versions on the card, the flash
+RWKV-6 WKV scan, the MoE decode's routed-expert FFN) against their plain
+versions on the card, the flash
 kernel under autograd in a train step, the MoE and Mamba models and the
 sampler's key chain and noise on the card against the CPU (imports torch only, so it runs where JAX is
 not installed):
@@ -734,3 +735,159 @@ def test_sampler_chain_and_noise_on_the_card_equal_the_cpus(cuda):
                          .manual_seed(0)) * 3
     assert torch.equal(prng.categorical(sub, logits.to(cuda)).cpu(),
                        prng.categorical(sub, logits))
+
+
+# ---------------------------------------------------------------------------
+# K5: the MoE decode's routed-expert GLU FFN (csrc/moe_decode.cu)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.moe_decode import (moe_decode_ffn,  # noqa: E402
+                                            moe_decode_plain)
+
+#: (k, d, f, E): Mixtral-8x7B's top-2 of 8 experts, Granite-4.0-H-Small's
+#: top-10 of 72, at their published widths
+K5_SHAPES = {"mixtral": (2, 4096, 14336, 8), "granite": (10, 4096, 768, 72)}
+K5_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _k5_weights(cuda, dtype, d, f, E, seed=0):
+    """w_gate, w_up (E, d, f) and w_down (E, f, d) at the scale that keeps
+    each product's outputs near 1."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randn(shape, device=cuda, generator=gen) * n ** -0.5)
+            .to(dtype) for shape, n in (((E, d, f), d), ((E, d, f), d),
+                                        ((E, f, d), f))]
+
+
+def _k5_rows(cuda, dtype, T, k, d, E, seed=1):
+    """(rows (T*k, d), ids (T*k,)): at one token its row shared by its k
+    slots (a row stride of 0, as the model passes it); ids drawn with
+    repeats, the first 0 and the last E - 1, a repeat at the third."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(T, d, device=cuda, generator=gen).to(dtype)
+    rows = x[:, None, :].expand(T, k, d).reshape(T * k, d)
+    ids = torch.randint(0, E, (T * k,), device=cuda, generator=gen)
+    ids[0], ids[-1] = 0, E - 1
+    if T * k > 2:
+        ids[2] = ids[1]
+    return rows, ids
+
+
+@pytest.mark.parametrize("shape", sorted(K5_SHAPES))
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_matches_plain(cuda, shape, T, dtype):
+    k, d, f, E = K5_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    ws = _k5_weights(cuda, dt, d, f, E)
+    rows, ids = _k5_rows(cuda, dt, T, k, d, E)
+    assert (rows.stride(0) == 0) == (T == 1)
+    before = moe_decode_ffn.launches
+    out = moe_decode_ffn(rows, ids, *ws, "silu")
+    torch.cuda.synchronize()
+    assert moe_decode_ffn.launches == before + 1
+    assert out.shape == (T * k, d) and out.dtype == dt
+    ref = moe_decode_plain(rows, ids, *ws, "silu")
+    torch.testing.assert_close(out.float(), ref.float(), atol=K5_TOLS[dtype],
+                               rtol=K5_TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_tanh_gelu_matches_plain(cuda, dtype):
+    dt = getattr(torch, dtype)
+    ws = _k5_weights(cuda, dt, 256, 384, 6)
+    rows, ids = _k5_rows(cuda, dt, 3, 2, 256, 6)
+    torch.testing.assert_close(
+        moe_decode_ffn(rows, ids, *ws, "gelu").float(),
+        moe_decode_plain(rows, ids, *ws, "gelu").float(),
+        atol=K5_TOLS[dtype], rtol=K5_TOLS[dtype])
+
+
+@pytest.mark.parametrize("shape", sorted(K5_SHAPES))
+def test_k5_gives_the_same_bits_every_run(cuda, shape):
+    """The splits' partial sums are added in a fixed order, with no
+    atomics."""
+    k, d, f, E = K5_SHAPES[shape]
+    ws = _k5_weights(cuda, torch.bfloat16, d, f, E)
+    rows, ids = _k5_rows(cuda, torch.bfloat16, 3, k, d, E)
+    runs = [moe_decode_ffn(rows, ids, *ws) for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+def test_k5_replays_in_a_cuda_graph_with_new_ids(cuda):
+    """Captured once, replayed after the id tensor is rewritten in place:
+    the kernel reads its experts on the device, so the replay computes
+    the new experts' outputs."""
+    k, d, f, E = K5_SHAPES["granite"]
+    ws = _k5_weights(cuda, torch.bfloat16, d, f, E)
+    rows, ids = _k5_rows(cuda, torch.bfloat16, 1, k, d, E)
+    moe_decode_ffn(rows, ids, *ws)                  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe_decode_ffn(rows, ids, *ws)
+    for seed in (2, 3):
+        new = torch.randperm(E, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed))[:k]
+        ids.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = moe_decode_plain(rows, new, *ws, "silu")
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=K5_TOLS["bfloat16"],
+                                   rtol=K5_TOLS["bfloat16"])
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    ws = _k5_weights(cuda, torch.bfloat16, 64, 96, 4)
+    rows, ids = _k5_rows(cuda, torch.bfloat16, 1, 2, 64, 4)
+    before = moe_decode_ffn.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        moe_decode_ffn(rows.cpu(), ids, *ws)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        moe_decode_ffn(rows, ids.cpu(), *ws)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        moe_decode_ffn(rows, ids, ws[0].cpu(), *ws[1:])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_decode_ffn(rows.half(), ids, *(w.half() for w in ws))
+    with pytest.raises(TypeError, match="one dtype"):
+        moe_decode_ffn(rows, ids, ws[0].float(), *ws[1:])
+    with pytest.raises(TypeError, match="int64"):
+        moe_decode_ffn(rows, ids.int(), *ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_decode_ffn(rows, ids, ws[0].transpose(1, 2).contiguous()
+                       .transpose(1, 2), *ws[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        moe_decode_ffn(rows, ids, ws[0], ws[1], ws[1])
+    with pytest.raises(ValueError, match="no backward"):
+        moe_decode_ffn(rows, ids, ws[0].requires_grad_(), *ws[1:])
+    assert moe_decode_ffn.launches == before
+
+
+@pytest.mark.parametrize("E,k,T", [(8, 2, 1), (8, 2, 3), (72, 10, 1)])
+def test_routed_branch_matches_the_dispatch_on_the_card(cuda, E, k, T):
+    """``_moe_local`` in bf16 on the card: dropless at T*k < E it launches
+    K5 and dispatches nothing; at T <= 4 a capacity that drops is T, so
+    ``dropless=False`` runs the dispatch over every expert with every
+    assignment kept. The two agree within bf16 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import moe
+    cfg = get_reduced_config("mixtral-8x7b").model
+    cfg = dataclasses.replace(cfg, d_model=512, moe=dataclasses.replace(
+        cfg.moe, num_experts=E, top_k=k, d_ff_expert=768))
+    p = moe.init_moe(cfg, cfg.moe, torch.bfloat16, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    x = torch.randn(T, 512, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(1)).bfloat16()
+    assert moe._capacity(cfg.moe, T, False) == T
+    before = moe_decode_ffn.launches
+    with torch.no_grad():
+        routed, _ = moe._moe_local(cfg, cfg.moe, p, x, dropless=True)
+        assert moe_decode_ffn.launches == before + 1
+        dense, _ = moe._moe_local(cfg, cfg.moe, p, x, dropless=False)
+        assert moe_decode_ffn.launches == before + 1
+    scale = dense.float().abs().max().item()
+    torch.testing.assert_close(routed.float(), dense.float(),
+                               atol=2e-2 * scale, rtol=2e-2)

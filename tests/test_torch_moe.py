@@ -4,7 +4,9 @@ numpy), fp32 on the CPU at atol/rtol 1e-4: the capacity, the dispatch
 indices bit for bit on integer expert ids (ties are the point: the sort
 must be stable), ``_moe_local`` at capacities that drop tokens and
 dropless, its load-balance loss, and gradients through ``apply_moe``;
-then the five properties of tests/test_moe.py held on the port."""
+the routed decode path (T*k < E, dropless) against the dispatch, and
+when it engages; then the five properties of tests/test_moe.py held on
+the port."""
 import dataclasses
 
 import jax
@@ -18,6 +20,7 @@ from repro.configs import get_reduced_config as jax_reduced
 from repro.models import moe as jax_moe
 from repro.parallel import NO_MESH
 from repro_torch.configs import get_reduced_config
+from repro_torch.kernels.moe_decode import ops as moe_decode_ops
 from repro_torch.models import moe
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -112,7 +115,10 @@ def test_dispatch_sort_is_stable():
     (4, 2, 0.25, 64),       # tests/test_moe.py's capacity that drops
     (8, 2, 1.25, 64),       # Mixtral's un-reduced capacity factor
     (16, 8, 0.5, 64),       # Kimi-K2's top-8, half its load dropped
-    (4, 2, 2.0, 33)])
+    (4, 2, 2.0, 33),
+    # decodes (T*k < E): dropless, each assignment through its own
+    # expert alone (the plain routed path on the CPU)
+    (4, 2, 2.0, 1), (8, 2, 2.0, 2), (16, 8, 2.0, 1)])
 @pytest.mark.parametrize("dropless", [False, True])
 def test_moe_local_matches_jax(E, k, cf, T, dropless):
     jm, tm, jp, tp = _setup(E=E, k=k, cf=cf)
@@ -187,6 +193,59 @@ def test_init_moe_matches_the_reference_tree():
     assert float(w.abs().max()) <= 2 * scale * 1.01
     assert 0.8 * scale < float(w.std()) < 0.9 * scale
     assert not torch.equal(w[0], w[1])
+
+
+# ---------------------------------------------------------------------------
+# the routed decode path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E,k,T,act", [
+    (4, 2, 1, "swiglu"), (8, 2, 3, "swiglu"), (16, 8, 1, "geglu"),
+    (72, 10, 1, "swiglu"), (72, 10, 4, "geglu")])
+def test_routed_path_equals_the_dispatch(E, k, T, act):
+    """At T <= 4 a capacity that drops is still T (at least 4, at most
+    T), so ``dropless=False`` takes the dispatch with every assignment
+    kept: the routed path, fp32 on the CPU, gives its output."""
+    _, tm, _, tp = _setup(E=E, k=k, act=act)
+    assert moe._capacity(tm.moe, T, False) == T
+    x = _x(T, tm.d_model, seed=E + T)
+    routed, aux_r = _port_local(tm, tp, x, True)
+    dense, aux_d = _port_local(tm, tp, x, False)
+    torch.testing.assert_close(routed, dense, atol=1e-6, rtol=1e-6)
+    assert torch.equal(aux_r, aux_d)
+
+
+@pytest.mark.parametrize("dropless,T,E,es,act,routed", [
+    (True, 1, 4, "tp", "swiglu", True),
+    (True, 3, 8, "tp", "swiglu", True),
+    (True, 1, 4, "tp", "geglu", True),
+    (True, 2, 4, "tp", "swiglu", False),     # T*k = E
+    (False, 1, 4, "tp", "swiglu", False),    # a prefill's capacity
+    (True, 1, 4, "ep", "swiglu", False),     # ep parks foreign experts
+    (True, 1, 4, "tp", "gelu", False)])      # no gate: not a GLU
+def test_routed_path_engages_only_where_it_may(monkeypatch, dropless, T, E,
+                                               es, act, routed):
+    """The routed path (K5's plain version on the CPU) runs, and the
+    dispatch does not, exactly when the call is dropless, T*k < E, not
+    ``ep``, and the experts are GLUs."""
+    calls = {"plain": 0, "dispatch": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(moe_decode_ops, "moe_decode_plain",
+                        counted("plain", moe_decode_ops.moe_decode_plain))
+    monkeypatch.setattr(moe, "_dispatch_indices",
+                        counted("dispatch", moe._dispatch_indices))
+    _, tm, _, tp = _setup(E=E, k=2, act=act)
+    y, _ = moe._moe_local(tm, tm.moe, tp,
+                          torch.from_numpy(_x(T, tm.d_model, 5)),
+                          dropless=dropless, n_local_experts=E,
+                          expert_offset=0, es=es)
+    assert y.shape == (T, tm.d_model) and torch.isfinite(y).all()
+    assert calls == {"plain": int(routed), "dispatch": int(not routed)}
 
 
 # ---------------------------------------------------------------------------
