@@ -3,18 +3,18 @@
 ``flash_attention`` takes the reference's ``(B, S, heads, dh)`` layout.
 On a CPU tensor it computes ``attention_plain``; on a CUDA tensor it
 launches the hand-written Hopper kernel (``csrc/flash_attention.cu``)
-or raises. The kernel has three paths, chosen by ``kernel_path`` from
-the dtype and head dim alone: wgmma fed by TMA (bf16, dh 64, 80, 112,
-128 and 256: every head dim a config of the registry uses), mma.sync
-(bf16, dh 16 and 32) and SIMT (fp32). It is built for the head dims of
-``_HEAD_DIMS``; dh 80 and 112 are read unpadded (TMA fills the columns
-past dh with zeros in shared memory, and the products skip them). Any
-other dh up to 256 is zero-padded on the host to the next instance
-(zero q and k columns leave q k^T unchanged, the scale stays 1/sqrt(dh)
-of the real dh, and v's padded columns are sliced off the output). The
-backward recomputes through ``attention_plain`` under autograd, as the
-reference's custom VJP recomputes through ``attention_ref``; the
-forward kernel is what serving runs.
+or raises. The kernel has two paths, chosen by ``kernel_path`` from the
+dtype alone: wgmma fed by TMA (bf16) and SIMT (fp32). It is built for
+the head dims of ``_HEAD_DIMS`` (64, 80, 112, 128 and 256: every head
+dim a config of the registry uses); dh 80 and 112 are read unpadded
+(TMA fills the columns past dh with zeros in shared memory, and the
+products skip them). Any other dh up to 256 is zero-padded on the host
+to the next instance (zero q and k columns leave q k^T unchanged, the
+scale stays 1/sqrt(dh) of the real dh, and v's padded columns are
+sliced off the output). The backward recomputes through
+``attention_plain`` under autograd, as the reference's custom VJP
+recomputes through ``attention_ref``; the forward kernel is what
+serving runs.
 """
 from __future__ import annotations
 
@@ -29,9 +29,9 @@ from repro_torch.kernels.flash_attention.ref import attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims csrc/flash_attention.cu is instantiated for
-_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
-#: the kernels of csrc/flash_attention.cu, by the code its C entry takes
-PATHS = {"simt": 0, "mma": 1, "wgmma": 2}
+_HEAD_DIMS = (64, 80, 112, 128, 256)
+#: the kernels of csrc/flash_attention.cu: fp32's and bf16's
+PATHS = ("simt", "wgmma")
 
 
 def padded_head_dim(dh: int) -> int:
@@ -45,18 +45,14 @@ def padded_head_dim(dh: int) -> int:
                      f"{_HEAD_DIMS[-1]}, the largest the kernel takes")
 
 
-def kernel_path(dtype: torch.dtype, dh: int) -> str:
-    """The kernel that runs (dtype, dh): "wgmma" (bf16, instances 64, 80,
-    112, 128 and 256: wgmma fed by TMA), "mma" (bf16, instances 16 and
-    32: mma.sync) or "simt" (fp32 on the CUDA cores; TF32 would miss the
-    reference's 2e-5). dh is first padded to its instance
-    (``padded_head_dim``: 48 runs as 64, 96 as 112, 200 as 256, all on
-    wgmma in bf16; 7 as 16 on mma). The choice depends on nothing else,
-    and a launch the chosen kernel refuses raises: no path stands in for
-    another."""
-    if dtype == torch.float32:
-        return "simt"
-    return "mma" if padded_head_dim(dh) <= 32 else "wgmma"
+def kernel_path(dtype: torch.dtype) -> str:
+    """The kernel that runs ``dtype``: "wgmma" for bf16 (wgmma fed by
+    TMA, at every instance of ``_HEAD_DIMS``; a head dim without one,
+    as 16, 32 or 48, runs the next on zero-padded inputs) or "simt" for
+    fp32 (on the CUDA cores; TF32 would miss the reference's 2e-5). The
+    choice depends on nothing else, and a launch the chosen kernel
+    refuses raises: no path stands in for another."""
+    return "simt" if dtype == torch.float32 else "wgmma"
 
 
 _fa_fwd = None
@@ -71,7 +67,7 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_void_p])
         _fa_fwd = fn
     return _fa_fwd
 
@@ -125,7 +121,7 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
     _check(q, k, v, window)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    path = kernel_path(q.dtype, dh)
+    path = kernel_path(q.dtype)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
@@ -136,7 +132,7 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
             B, Sq, Skv, H, KV, dh, strides, int(bool(causal)),
             int(window) if window is not None else 0,
             float(softcap) if softcap is not None else 0.0,
-            float(scale), _DTYPES[q.dtype], PATHS[path], stream)
+            float(scale), _DTYPES[q.dtype], stream)
     if err != 0:
         raise _build.KernelError(f"flash_attention kernel launch failed "
                                  f"({path} path): cudaError {err}")

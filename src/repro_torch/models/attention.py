@@ -126,12 +126,21 @@ def sdpa(q, k, v, bias, *, softcap_val: Optional[float],
 def attention_forward(p: dict, att: AttentionConfig, x: torch.Tensor,
                       positions: torch.Tensor, *, window: Optional[int],
                       causal: bool, block_q: int = 1024,
-                      return_kv: bool = False):
-    """Full-sequence (train / prefill) attention, q-blocked when long."""
+                      return_kv: bool = False, use_flash: bool = False):
+    """Full-sequence (train / prefill) attention, q-blocked when long;
+    with ``use_flash`` the inner softmax-attention runs in the flash
+    kernel (CUDA tensors; its plain version on CPU tensors)."""
     B, S, d = x.shape
     q, k, v = _qkv(p, att, x, positions)
-    out = _attend(att, q, k, v, positions, window=window, causal=causal,
-                  block_q=block_q)
+    if use_flash:
+        # looked up on the package at each call, so that patching it
+        # there reaches the model
+        from repro_torch.kernels.flash_attention import flash_attention
+        out = flash_attention(q, k, v, causal, window, att.logit_softcap,
+                              att.softmax_scale)
+    else:
+        out = _attend(att, q, k, v, positions, window=window,
+                      causal=causal, block_q=block_q)
     out = out.reshape(B, S, att.n_heads * att.d_head) @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -164,23 +173,6 @@ def _attend(att: AttentionConfig, q, k, v, positions, *,
     return torch.cat(blocks, dim=1)
 
 
-def attention_forward_flash(p: dict, att: AttentionConfig, x: torch.Tensor,
-                            positions: torch.Tensor, *,
-                            window: Optional[int], causal: bool,
-                            return_kv: bool = False):
-    """attention_forward, but the inner softmax-attention runs in the
-    flash kernel (CUDA tensors; its plain version on CPU tensors)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    B, S, d = x.shape
-    q, k, v = _qkv(p, att, x, positions)
-    out = flash_attention(q, k, v, causal, window, att.logit_softcap,
-                          att.softmax_scale)
-    out = out.reshape(B, S, att.n_heads * att.d_head) @ p["wo"]
-    if return_kv:
-        return out, (k, v)
-    return out
-
-
 def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
                      cache: KVCache, *, window: Optional[int]
                      ) -> tuple[torch.Tensor, KVCache]:
@@ -206,9 +198,24 @@ def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
     k.index_copy_(1, slot, k_new.to(k.dtype))
     v.index_copy_(1, slot, v_new.to(v.dtype))
 
-    # Position of every cache slot, reconstructed from the ring layout:
-    # the most recent position p <= index with p % Sc == slot.
     slots = torch.arange(Sc, dtype=torch.int64, device=x.device)
+    out = _decode_attend(att, q, k, v, slots, index, Sc, window=window)
+    return out @ p["wo"], KVCache(k=k, v=v, index=index + 1)
+
+
+def _decode_attend(att: AttentionConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, slots: torch.Tensor, index, Sc: int, *,
+                   window: Optional[int], groups=()) -> torch.Tensor:
+    """One decode token's attention over cache slots: q (B,1,H,dh); k / v
+    (B,n,KV,dh) hold the slots whose global indices in the ring of ``Sc``
+    are ``slots`` (n,); ``index`` is the token's position (a 0-d tensor,
+    or a host int). Over a mesh each rank holds a share of the slots, and
+    the softmax and the output are combined across the process
+    ``groups`` (a max, then two sums). Returns (B,1,H*dh), before ``wo``.
+    """
+    B = q.shape[0]
+    # Position of every slot, reconstructed from the ring layout: the
+    # most recent position p <= index with p % Sc == slot.
     slot_pos = index - torch.remainder(index - slots, Sc)
     valid = slot_pos >= 0
     if window is not None:
@@ -219,20 +226,24 @@ def attention_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
     # the reference's preferred_element_type=fp32 einsums do.
     G = att.n_heads // att.n_kv_heads
     qg = q.reshape(B, att.n_kv_heads, G, att.d_head)
-    scale = softmax_scale(att)
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(k.dtype).float(),
-                     k.float()) * scale
+                     k.float()) * softmax_scale(att)
     if att.logit_softcap is not None:
         s = torch.tanh(s / att.logit_softcap) * att.logit_softcap
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
     s = s + torch.where(valid, zero, NEG_INF)[None, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
+    for g in groups:
+        m = sh.all_reduce_max(m, g)
     e = torch.exp(s - m)
-    probs = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(),
-                       v.float()).to(v.dtype)
-    out = out.reshape(B, 1, att.n_heads * att.d_head) @ p["wo"]
-    return out, KVCache(k=k, v=v, index=index + 1)
+    tot = e.sum(dim=-1, keepdim=True)
+    for g in groups:
+        tot = sh.all_reduce_sum(tot, g)
+    out = torch.einsum("bkgs,bskd->bkgd", (e / tot).to(v.dtype).float(),
+                       v.float())
+    for g in groups:
+        out = sh.all_reduce_sum(out, g)
+    return out.to(v.dtype).reshape(B, 1, att.n_heads * att.d_head)
 
 
 def init_cache(att: AttentionConfig, batch: int, max_seq: int,
@@ -305,7 +316,6 @@ def attention_decode_sharded(ctx, p: dict, att: AttentionConfig, x,
     each rank writes the new K/V if it holds the slot, scores its own
     slots, and the softmax and the output are combined across those
     ranks (a max, then two sums). Weights are gathered whole."""
-    from repro_torch.parallel import sharding as sh
     keys = sorted(p)
     w = [ctx.constrain(p[k], *([None] * p[k].ndim)) for k in keys]
     names = ctx.mesh.mesh_dim_names
@@ -323,12 +333,9 @@ def attention_decode_sharded(ctx, p: dict, att: AttentionConfig, x,
     off = idx * Sl
     index = int(cache.index)
     groups = [ctx.group(a) for a in seq_axes]
-    G = att.n_heads // att.n_kv_heads
-    scale = softmax_scale(att)
 
     def body(h, kc, vc, *wl):
         pl = dict(zip(keys, wl))
-        B = h.shape[0]
         pos = torch.full((1,), index, dtype=torch.int32, device=h.device)
         q, k_new, v_new = _qkv(pl, att, h, pos)
         slot = index % Sc
@@ -336,29 +343,8 @@ def attention_decode_sharded(ctx, p: dict, att: AttentionConfig, x,
             kc[:, slot - off] = k_new[:, 0].to(kc.dtype)
             vc[:, slot - off] = v_new[:, 0].to(vc.dtype)
         slots = off + torch.arange(Sl, dtype=torch.int64, device=h.device)
-        slot_pos = index - torch.remainder(index - slots, Sc)
-        valid = slot_pos >= 0
-        if window is not None:
-            valid &= (index - slot_pos) < window
-        qg = q.reshape(B, att.n_kv_heads, G, att.d_head)
-        s = torch.einsum("bkgd,bskd->bkgs", qg.to(kc.dtype).float(),
-                         kc.float()) * scale
-        if att.logit_softcap is not None:
-            s = torch.tanh(s / att.logit_softcap) * att.logit_softcap
-        zero = torch.zeros((), dtype=torch.float32, device=h.device)
-        s = s + torch.where(valid, zero, NEG_INF)[None, None, None, :]
-        mx = s.amax(dim=-1, keepdim=True)
-        for g in groups:
-            mx = sh.all_reduce_max(mx, g)
-        e = torch.exp(s - mx)
-        tot = e.sum(dim=-1, keepdim=True)
-        for g in groups:
-            tot = sh.all_reduce_sum(tot, g)
-        out = torch.einsum("bkgs,bskd->bkgd", (e / tot).to(vc.dtype).float(),
-                           vc.float())
-        for g in groups:
-            out = sh.all_reduce_sum(out, g)
-        out = out.to(vc.dtype).reshape(B, 1, att.n_heads * att.d_head)
+        out = _decode_attend(att, q, kc, vc, slots, index, Sc,
+                             window=window, groups=groups)
         return out @ pl["wo"]
 
     y = sh.shard_map(ctx, body, (x, cache.k, cache.v, *w), (x.placements,),

@@ -345,18 +345,18 @@ def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
     if ctx.mesh is not None:
         return _attention_sharded(ctx, cfg, p, h, state, mode, positions,
                                   max_seq, use_flash, window)
-    fwd = (attn_lib.attention_forward_flash if use_flash
-           else attn_lib.attention_forward)
     if mode == "decode":
         h, cache = attn_lib.attention_decode(p["mixer"], att, h,
                                              state["mixer"], window=window)
         return h, {"mixer": cache}
     if mode == "prefill":
-        h, kv = fwd(p["mixer"], att, h, positions, window=window,
-                    causal=att.causal, return_kv=True)
+        h, kv = attn_lib.attention_forward(
+            p["mixer"], att, h, positions, window=window, causal=att.causal,
+            return_kv=True, use_flash=use_flash)
         return h, {"mixer": _cache_from_prefill(kv, window, max_seq)}
-    return fwd(p["mixer"], att, h, positions, window=window,
-               causal=att.causal), None
+    return attn_lib.attention_forward(
+        p["mixer"], att, h, positions, window=window, causal=att.causal,
+        use_flash=use_flash), None
 
 
 def _attention_sharded(ctx: ParallelCtx, cfg: ModelConfig, p: Params,

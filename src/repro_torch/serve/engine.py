@@ -319,38 +319,6 @@ class ServeEngine:
     # rpc endpoint
     # ------------------------------------------------------------------
 
-    def rpc_handler(self, bufs: List[np.ndarray],
-                    scheduler: Optional[ServeScheduler] = None
-                    ) -> List[np.ndarray]:
-        """``Serve/generate`` method body: iovec request -> iovec reply.
-        With a ``scheduler`` the request joins the endpoint's shared
-        continuous batch and is driven to completion (concurrently
-        advancing whatever else is in flight there)."""
-        prompts, mnt = decode_generate_request(bufs)
-        if scheduler is None:
-            out = self.generate(prompts, mnt or None)
-        else:
-            out = scheduler.run(scheduler.submit(prompts, mnt or None))
-        return encode_generate_reply(out)
-
-    def rpc_stream_handler(self, bufs: List[np.ndarray],
-                           scheduler: Optional[ServeScheduler] = None):
-        """``Serve/generate_stream`` method body: iovec request -> one
-        chunk per decode step, each a (B,) int32 token vector. With a
-        ``scheduler`` the chunks come from the endpoint's shared decode
-        step wrapped in an ``rpc.StreamPump``, so the flush loop pulls
-        one chunk per iteration and concurrent streams interleave."""
-        prompts, mnt = decode_generate_request(bufs)
-        if scheduler is None:
-            return ([_i32_buf(tok)]
-                    for tok in self.generate_tokens(prompts, mnt or None))
-        from repro_torch import rpc as rpclib
-        req = scheduler.submit(prompts, mnt or None)
-        pump = rpclib.StreamPump(
-            [_i32_buf(tok)] for tok in scheduler.stream_tokens(req))
-        req.pump = pump          # phase spans attribute to this call
-        return pump
-
     def attach(self, server, *, max_batch: int = 8,
                kv_blocks: Optional[int] = None,
                block_size: int = 16, sched_policy: str = "fifo",

@@ -97,10 +97,11 @@ def test_non_cpu_tensors_never_fall_back():
         flash_attention(q, k, v)
 
 
-# which kernel runs (dtype, dh): a function of those two alone
+# which kernel runs (dtype, dh): a function of the dtype alone; bf16 at
+# a head dim below 64 runs the dh-64 instance on zero-padded inputs
 PATH_TABLE = [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
@@ -110,7 +111,7 @@ PATH_TABLE = [
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 112, "wgmma"),
     (torch.float32, 80, "simt"), (torch.float32, 112, "simt"),
     (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 96, "wgmma"),
-    (torch.bfloat16, 7, "mma"), (torch.bfloat16, 200, "wgmma"),
+    (torch.bfloat16, 7, "wgmma"), (torch.bfloat16, 200, "wgmma"),
     (torch.float32, 200, "simt"),
 ]
 
@@ -119,7 +120,7 @@ PATH_TABLE = [
 def test_kernel_path_is_pinned_by_dtype_and_head_dim(dtype, dh, path):
     from repro_torch.kernels.flash_attention import kernel_path
     from repro_torch.kernels.flash_attention import ops
-    assert kernel_path(dtype, dh) == path
+    assert kernel_path(dtype) == path
     assert path in ops.PATHS and set(flash_attention.launches_by_path) \
         == set(ops.PATHS)
 
@@ -193,6 +194,8 @@ def test_every_head_dim_up_to_256_has_an_instance():
         inst = ops.padded_head_dim(dh)
         assert inst in ops._HEAD_DIMS and inst >= dh
         assert all(i < dh for i in ops._HEAD_DIMS if i < inst)
+    assert ops._HEAD_DIMS == (64, 80, 112, 128, 256)
+    assert ops.padded_head_dim(16) == ops.padded_head_dim(32) == 64
     assert ops.padded_head_dim(80) == 80
     assert ops.padded_head_dim(112) == 112
     with pytest.raises(ValueError, match="head dim 264"):
