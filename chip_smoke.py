@@ -50,6 +50,14 @@ Phases (any failure raises, and the script exits non-zero):
    (one assignment's expert changed, the activation left out) must
    exceed; then kernel / plain / dense (the three batched products over
    every expert) times there beside the routed experts' byte bound;
+4c. the Mamba-2 chunked SSD scan (``[ssd_scan]``, K6): the kernel
+   against ``ssd_scan_plain`` at Granite-4.0-H-Small's mixer (128 heads
+   of 64, d_state 128) over prompts of 128, 1,905 and 4,000 tokens, and
+   at Jamba-1.5-Large's (256 heads, d_state 16) over [serve]'s batch of
+   4 x 512, with a non-zero state, y and the final state within SSD_TOL
+   of their scale, which two controls (the state dropped at every chunk,
+   every decay doubled) must exceed; then kernel / plain times there
+   beside the operations' bound;
 5. serve Qwen3-8B at full width (36 layers, random weights from seed 0)
    through the port's serve entry point, ``--batch 4 --prompt-len 512
    --new-tokens 32 --requests 3``: over the loopback streaming RPC, with
@@ -91,7 +99,8 @@ Phases (any failure raises, and the script exits non-zero):
    Jamba-1.5-Large (5 of 72: positions 0-4 of its period, 4 Mamba and 1
    attention layer, MoE at 1 and 3) and Kimi-K2 (1 of 61), the same
    three ways: greedy tokens must agree, K3 must launch once an
-   attention layer a prefill, all on wgmma, and K4 never; K5 must be
+   attention layer a prefill, all on wgmma, K6 once a Mamba layer a
+   prefill, and K4 never; K5 must be
    called once a MoE layer a decode step run outside a graph replay
    where the decode's T*k < E (Jamba's 8 of 16, Kimi-K2's 32 of 384;
    Mixtral's 8 = E keeps the dispatch), and never elsewhere; then Gemma-2-9B
@@ -293,7 +302,7 @@ E2E_CONTROLS = {"window S - 64": {"sliding_window": PROMPT_LEN - 64},
 # throughout, so they differ only in summation order.
 E2E_FP32_TOL = 1e-4
 KERNEL_SOURCES = ("flash_attention", "payload_pack", "rwkv6_scan",
-                  "moe_decode")
+                  "moe_decode", "ssd_scan")
 # [cluster]: Qwen3-8B on a 2 ps x 2 worker cluster, 2 rounds; in each,
 # each worker streams one of the serve CLI's request prompts (by index)
 # in the same flush. Per policy, the dispatch counts per link it must
@@ -347,6 +356,19 @@ MOE_SERVE = (("mixtral-8x7b", 8, 8), ("jamba-1.5-large-398b", 5, 1),
 K5_SHAPES = {"mixtral-8x7b": (2, 4096, 14336, 8),
              "granite-4.0-h-small": (10, 4096, 768, 72)}
 K5_TOL = 2e-2
+# [ssd_scan]: K6 at the mixers of the models that prefill through it,
+# (batch, heads, d_state) with heads of 64, over one prompt of each
+# length: Granite-4.0-H-Small's (128 heads, d_state 128) at 128, the
+# serve cell's mean 1,905 and its longest 4,000; Jamba-1.5-Large's (256
+# heads, d_state 16: another instance of the kernel) at [serve]'s batch
+# 4 of 512. Kernel and plain are both fp32; they differ in the order of
+# sums, the cumulative sum's rounding and ex2.approx, about 1e-6 of the
+# outputs' scale. SSD_TOL of that scale holds y and the final state; the
+# controls (the state dropped at every chunk boundary, every decay
+# applied twice) must exceed it on y.
+SSD_CASES = {"granite-4.0-h-small": (1, 128, 128, (128, 1905, 4000)),
+             "jamba-1.5-large-398b": (4, 256, 16, (512,))}
+SSD_TOL = 1e-4
 # Gemma-2-9B served whole (42 layers of 16 q / 8 kv heads of 256, softcap
 # 50, a window of 4096 on alternate layers, GeGLU, tied embeddings over a
 # 256,000-token vocabulary, final logit softcap 30): 9.2 B parameters,
@@ -476,6 +498,7 @@ PLAIN_PEAKS: dict = {}
 # then its elementwise and reduction kernels
 # (matched against the lower-cased kernel name)
 KERNEL_KINDS = (("K3", ("fa_fwd",)), ("K4", ("rwkv6_scan",)),
+                ("K6", ("ssd_scan",)),
                 ("K1/K2", ("pp_kernel",)),
                 ("gemm", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
                           "sm90_")),
@@ -1078,6 +1101,105 @@ def phase_moe_decode(name: str) -> dict:
             "granite-4.0-h-small": entries["granite-4.0-h-small"]}
 
 
+def ssd_work(Bn: int, S: int, H: int, P: int, N: int, L: int = 64
+             ) -> tuple:
+    """(FLOPs, bytes) that one K6 call over Bn prompts of S tokens needs:
+    per prompt, head and chunk of lc tokens the causal intra-chunk
+    product (lc (lc + 1) / 2 pairs times P), the state's update and the
+    inter-chunk read (lc P N each), and per prompt and chunk C.B over its
+    causal pairs (shared by the heads); x, B, C, the log decays and the
+    state read once, y and the final state written once, in fp32."""
+    macs = 0
+    for t0 in range(0, S, L):
+        lc = min(L, S - t0)
+        pairs = lc * (lc + 1) // 2
+        macs += H * (pairs * P + 2 * lc * P * N) + pairs * N
+    return 2 * Bn * macs, 4 * Bn * (2 * S * H * P + 2 * S * N + S * H
+                                    + 2 * H * P * N)
+
+
+def phase_ssd(name: str) -> dict:
+    """K6 against ``ssd_scan_plain`` for each case of SSD_CASES and each
+    of its lengths, with its two controls, then kernel / plain times (L2
+    flushed) beside its bound. Returns the ``kernels`` line's entry:
+    Granite's mean prompt at the top level, its other lengths under
+    ``S <n>``, the other models' under ``<arch> S <n>``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    P = 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    def off(out, ref) -> float:
+        """The largest |out - ref| past SSD_TOL of ref's scale (and of
+        |ref|): <= 0 within."""
+        tol = SSD_TOL * (ref.abs().max() + ref.abs())
+        return ((out - ref).abs() - tol).max().item()
+
+    entries = {}
+    for arch, (Bn, H, N, lengths) in SSD_CASES.items():
+        for S in lengths:
+            where = f"{arch} S {S}, batch {Bn}"
+            args = (rn(Bn, S, H, P) * 0.1, rn(Bn, S, N), rn(Bn, S, N),
+                    -0.5 * torch.rand((Bn, S, H), device="cuda",
+                                      generator=gen),
+                    rn(Bn, H, P, N) * 0.3)
+            before = ssd_scan.launches
+            y, h = ssd_scan(*args)
+            torch.cuda.synchronize()
+            if ssd_scan.launches != before + 1:
+                raise AssertionError(f"[ssd_scan] {where}: the kernel was "
+                                     f"not launched")
+            yp, hp = ssd_scan_plain(*args)
+            xh, Bm, Cm, log_a, h0 = args
+            controls = {
+                "state dropped at each chunk": torch.cat([ssd_scan_plain(
+                    *(t[:, c:c + 64] for t in args[:4]), h0)[0]
+                    for c in range(0, S, 64)], dim=1),
+                "decays doubled": ssd_scan_plain(xh, Bm, Cm, 2 * log_a,
+                                                 h0)[0]}
+            err = max((y - yp).abs().max().item(),
+                      (h - hp).abs().max().item())
+            past = {c: off(v, yp) for c, v in controls.items()}
+            print(f"[ssd_scan] {where}, {H} heads of {P}, d_state {N}, "
+                  f"fp32: max|kernel - plain| {err:.3e} (y past SSD_TOL "
+                  f"{off(y, yp):.3e}, state {off(h, hp):.3e}; y scale "
+                  f"{yp.abs().max().item():.3g}); controls past it: "
+                  + ", ".join(f"{c} {v:.3e}" for c, v in past.items()))
+            if off(y, yp) > 0 or off(h, hp) > 0:
+                raise AssertionError(f"[ssd_scan] {where}: kernel vs plain "
+                                     f"{err:.3e} past SSD_TOL")
+            if any(v <= 0 for v in past.values()):
+                raise AssertionError(f"[ssd_scan] {where}: a control stays "
+                                     f"within SSD_TOL: {past}")
+            ms = gpu_ms(lambda: ssd_scan(*args))
+            plain_ms = gpu_ms(lambda: ssd_scan_plain(*args), iters=5)
+            flops, nbytes = ssd_work(Bn, S, H, P, N)
+            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"[ssd_scan] {where} on {name}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {flops / 1e9:.2f} GFLOP at "
+                  f"{FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, "
+                  f"{nbytes / 1e6:.1f} MB at {HBM_BPS / 1e12} TB/s); the "
+                  f"kernel at {100 * bound_ms / ms:.1f} % of it")
+            label = (f"S {S}" if arch == "granite-4.0-h-small"
+                     else f"{arch} S {S}")
+            entries[label] = {
+                "shape": f"xh ({Bn}, {S}, {H}, {P}), d_state {N}, fp32",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+            del args, y, h, yp, hp, controls
+            torch.cuda.empty_cache()
+    main = entries.pop("S 1905")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu", "replaces": None,
+            **main, **entries}
+
+
 def _frames():
     """The frames of tests/test_torch_package.py, zero-size buffers
     included."""
@@ -1466,15 +1588,16 @@ def phase_serve(name: str, args: list, kernel, layers: int,
     which must be ``layers`` per prefill ("launches"), the direct path's
     engine ("engine", its weights reused by [cluster]) and its tokens
     ("direct", one (BATCH, NEW_TOKENS) array a request), the direct
-    path's ms a decode step ("decode_ms") and K5's calls ("k5"): one a
+    path's ms a decode step ("decode_ms"), K5's calls ("k5"): one a
     MoE layer each decode step the model runs (eager, or the warm-up and
     the capture of a slot's graph, whose replays rerun the captured
     launches) where the decode's BATCH * top-k is under the experts, and
-    none elsewhere."""
+    none elsewhere; and K6's calls ("k6"), one a Mamba layer a prefill."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_decode import moe_decode_ffn
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.optim.optimizer import tree_leaves
     arch = args[args.index("--arch") + 1]
@@ -1483,7 +1606,7 @@ def phase_serve(name: str, args: list, kernel, layers: int,
              ("direct", ["--no-rpc"]))
     outputs, prefills, kept = {}, 0, None
     counted = (flash_attention, rwkv6_scan)
-    for fn in counted + (moe_decode_ffn,):
+    for fn in counted + (moe_decode_ffn, ssd_scan):
         fn.launches = 0
     steps = dict.fromkeys(("eager_decodes", "graph_captures",
                            "graph_replays"), 0)
@@ -1572,9 +1695,19 @@ def phase_serve(name: str, args: list, kernel, layers: int,
                  f"0 (decode T*k {BATCH * mcfg.moe.top_k} >= E "
                  f"{mcfg.moe.num_experts}: the dispatch)")
               + f"; decode steps {steps}")
+    mamba_layers = sum(
+        mcfg.layer_pattern[i % mcfg.pattern_period] == "mamba"
+        for i in range(mcfg.num_layers))
+    if ssd_scan.launches != mamba_layers * prefills:
+        raise AssertionError(f"[serve] {arch}: K6 calls {ssd_scan.launches}"
+                             f", {mamba_layers} Mamba layers x {prefills} "
+                             f"prefills expected")
+    if mamba_layers:
+        print(f"[serve] {arch} K6 calls {ssd_scan.launches} = "
+              f"{mamba_layers} Mamba layers x {prefills} prefills")
     return {"launches": launches[kernel.__name__], "engine": kept,
             "direct": outputs["direct"], "decode_ms": decode_ms,
-            "k5": moe_decode_ffn.launches}
+            "k5": moe_decode_ffn.launches, "k6": ssd_scan.launches}
 
 
 def phase_sample(name: str, greedy: list, decode_ms: float) -> int:
@@ -2362,11 +2495,12 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
     decode step that warm it. The mesh run is the main path: its
     kernel counts are set to 0 just before it and read just after, and
     ``kernel`` must launch ``per_prefill`` times (and only once a layer
-    on wgmma for K3), the other kernel never. Its greedy tokens must
-    equal [serve]'s direct tokens (``served``) and the no-mesh run's,
+    on wgmma for K3), the other kernel never, and K6 once a Mamba
+    layer. Its greedy tokens must equal [serve]'s direct tokens
+    (``served``) and the no-mesh run's,
     its last-position prefill logits lie within ``logits_tol`` (max|diff|
     / max|no mesh|). Prints ms a request, ms a decode step and the peak
-    beside the no-mesh run's. Returns K3's and K4's launches."""
+    beside the no-mesh run's. Returns K3's, K4's and K6's launches."""
     import dataclasses
 
     import numpy as np
@@ -2374,6 +2508,7 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve, steps
     from repro_torch.models import model as M
@@ -2406,6 +2541,7 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
             decode(p, prefill(p, {"tokens": prompts})[0], prompts[:, :1])
             if label == "mesh":
                 flash_attention.launches = rwkv6_scan.launches = 0
+                ssd_scan.launches = 0
                 flash_attention.launches_by_path = dict.fromkeys(
                     flash_attention.launches_by_path, 0)
             _free()
@@ -2430,6 +2566,7 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
             if label == "mesh":
                 launches = {"K3": flash_attention.launches,
                             "K4": rwkv6_scan.launches,
+                            "K6": ssd_scan.launches,
                             "K3 by path": dict(
                                 flash_attention.launches_by_path)}
             del p, states, logits
@@ -2458,6 +2595,13 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
             raise AssertionError(f"{what}: greedy tokens differ from the "
                                  f"no-mesh run or [serve]'s")
         other = "K4" if kernel == "K3" else "K3"
+        mcfg = acfg.model
+        mamba_layers = sum(
+            mcfg.layer_pattern[i % mcfg.pattern_period] == "mamba"
+            for i in range(mcfg.num_layers))
+        if launches["K6"] != mamba_layers:
+            raise AssertionError(f"{what}: K6 calls {launches['K6']}, not "
+                                 f"{mamba_layers} (one a Mamba layer)")
         if launches[kernel] != per_prefill or launches[other] or (
                 kernel == "K3"
                 and launches["K3 by path"]["wgmma"] != per_prefill):
@@ -2466,7 +2610,8 @@ def phase_mesh_serve(name: str, arch: str, depth, served, kernel,
         print(f"[mesh] {what}: greedy tokens equal the no-mesh run's and "
               f"[serve]'s; {kernel} launches {launches[kernel]} = "
               f"{per_prefill} x 1 prefill")
-        return {"K3": launches["K3"], "K4": launches["K4"]}
+        return {"K3": launches["K3"], "K4": launches["K4"],
+                "K6": launches["K6"]}
     finally:
         dist.destroy_process_group()
 
@@ -2846,7 +2991,8 @@ def main() -> int:
     wkv = phase_wkv(name)
     packs = phase_pack(name)
     k5 = phase_moe_decode(name)
-    k5_by_path = {}
+    k6 = phase_ssd(name)
+    k5_by_path, k6_by_path = {}, {}
     served = phase_serve(name, SERVE_ARGS, flash_attention, 36)
     by_path = {"serve": served["launches"],
                "cluster": phase_cluster(name, served)}
@@ -2871,6 +3017,8 @@ def main() -> int:
                              flash_attention, attn_layers, depth)
         by_path[f"serve_{arch.split('-')[0]}"] = served["launches"]
         k5_by_path[f"serve_{arch.split('-')[0]}"] = served["k5"]
+        if served["k6"]:
+            k6_by_path[f"serve_{arch.split('-')[0]}"] = served["k6"]
         if arch == JAMBA_ARCH:
             jamba = (depth, attn_layers, served["direct"])
         del served
@@ -2884,6 +3032,7 @@ def main() -> int:
                                jamba[1], E2E_REL_TOL)
     by_path["serve_mesh_jamba"] = on_mesh["K3"]
     wkv_by_path["serve_mesh_jamba"] = on_mesh["K4"]
+    k6_by_path["serve_mesh_jamba"] = on_mesh["K6"]
     by_path["train"], train_ms, train_device_ms = phase_train(
         name, ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS,
         (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_WQ_TOL))
@@ -2911,6 +3060,8 @@ def main() -> int:
     wkv["launches"] = sum(wkv_by_path.values())
     k5["launches_by_main_path"] = k5_by_path
     k5["launches"] = sum(k5_by_path.values())
+    k6["launches_by_main_path"] = k6_by_path
+    k6["launches"] = sum(k6_by_path.values())
     phase_train_small(name)
     launches = phase_suite(name)
     swept = phase_sweep(name)
@@ -2922,7 +3073,7 @@ def main() -> int:
     phase_chain(name)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(name)
-    print(json.dumps({"kernels": [kernel] + packs + [wkv, k5]}))
+    print(json.dumps({"kernels": [kernel] + packs + [wkv, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,4 +10,6 @@
   moe_decode      — the dropless MoE decode's expert FFN over its routed
                     experts alone; replaces no TPU kernel (the reference
                     leaves the expert products to XLA)
+  ssd_scan        — the Mamba-2 chunked SSD scan (prefill); replaces no
+                    TPU kernel (the reference runs it as einsums)
 """

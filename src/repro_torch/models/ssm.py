@@ -25,9 +25,12 @@ entry, whose one shard holds every head without a mesh. The
 output projection then yields that rank's partial sum, and the states
 hold its heads.
 
-Mamba prefill runs the chunked SSD (chunk 64) in plain PyTorch, as the
-reference runs it in einsums outside any Pallas kernel; decode is the
-exact one-token recurrence. State: {"h": (B, H, 64, N) fp32, "conv":
+Mamba prefill runs the chunked SSD: on a CUDA tensor with no gradient
+required, in the hand-written kernel K6 (``kernels/ssd_scan``), which
+takes the prompt unpadded; otherwise (CPU tensors, training) in the
+plain loop over chunks of 64, ``mamba_ssd_chunked``, as the reference
+runs it in einsums outside any Pallas kernel. Decode is the exact
+one-token recurrence. State: {"h": (B, H, 64, N) fp32, "conv":
 (B, W-1, di), "conv_bc": (B, W-1, 2N)}: the conv histories are fp32
 zeros from ``init_mamba_state`` and the compute dtype after a prefill or
 a step, as in the reference.
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_shard
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.layers import _mm, dense_init, truncated_normal
 from repro_torch.parallel import sharding as sh
 
@@ -317,35 +321,6 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def mamba_ssd_chunked(xh, B_, C_, log_a, h0, chunk: int):
-    """xh: (B,S,H,P) dt-scaled inputs; B_,C_: (B,S,N); log_a: (B,S,H) <=0;
-    h0: (B,H,P,N). Returns y (B,S,H,P), h_final. A loop over chunks (the
-    reference's scan); every decay exponent is a difference of inclusive
-    cumulative log decays, <= 0."""
-    S = xh.shape[1]
-    assert S % chunk == 0, (S, chunk)
-    idx = torch.arange(chunk, device=xh.device)
-    tri = idx[None, :] <= idx[:, None]                   # i <= t
-    h = h0
-    ys = []
-    for c0 in range(0, S, chunk):
-        xb, Bb, Cb, ab = (t[:, c0:c0 + chunk] for t in (xh, B_, C_, log_a))
-        cum = torch.cumsum(ab, dim=1)                     # (B,Lc,H)
-        dlog = cum[:, :, None, :] - cum[:, None, :, :]    # [t,i,h]
-        dlog = torch.where(tri[None, :, :, None], dlog,
-                           torch.full_like(dlog, NEG_INF))
-        scores = torch.einsum("btn,bin->bti", Cb, Bb)     # (B,Lc,Lc)
-        M = scores[:, :, :, None] * torch.exp(dlog)       # (B,Lc,Lc,H)
-        y_intra = torch.einsum("btih,bihp->bthp", M, xb)
-        y_inter = torch.einsum("btn,bhpn->bthp", Cb, h) * \
-            torch.exp(cum)[..., None]
-        decay_out = torch.exp(cum[:, -1:, :] - cum)       # (B,Lc,H)
-        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + \
-            torch.einsum("bihp,bin->bhpn", xb * decay_out[..., None], Bb)
-        ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1), h
-
-
 def _local_dims(p, ssm: SSMConfig):
     """(d_inner, heads, d_state) of the heads ``p`` holds."""
     di = p["x_proj"].shape[-1]
@@ -379,15 +354,14 @@ def _mamba_post(p, y, z, x_heads, B, S, di, eps, norm_group=None):
 
 
 def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
-                  x: torch.Tensor, state: Optional[dict], chunk: int = 64,
+                  x: torch.Tensor, state: Optional[dict],
                   norm_group=None) -> Tuple[torch.Tensor, dict]:
-    """``norm_group``: see ``_mamba_post``."""
+    """``norm_group``: see ``_mamba_post``. The SSD takes the prompt
+    unpadded: where no gradient is required through K6's wrapper (the
+    kernel on a CUDA tensor, the plain loop on a CPU one), else through
+    the plain loop, which pads the ragged tail itself."""
     B, S, d = x.shape
     di, H, N = _local_dims(p, ssm)
-    padn = (-S) % chunk
-    if padn:
-        x = F.pad(x, (0, 0, 0, padn))
-    Sp = S + padn
     z, xs_pre, bc_pre, dt = _mamba_proj(p, x)
     cx = state["conv"] if state is not None else None
     cbc = state["conv_bc"] if state is not None else None
@@ -395,18 +369,15 @@ def mamba_forward(cfg: ModelConfig, ssm: SSMConfig, p: dict,
     bc = _causal_depthwise_conv(bc_pre, p["conv_w_bc"], p["conv_b_bc"],
                                 cbc)
     B_, C_ = torch.split(bc, N, dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,Sp,H)
-    if padn:  # padded tail: zero dt kills both decay and state writes
-        dt = dt * (torch.arange(Sp, device=x.device) < S)[None, :, None]
+    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,S,H)
     log_a = -torch.exp(p["a_log"])[None, None, :] * dt           # <= 0
-    x_heads = xs.reshape(B, Sp, H, P_HEAD).float()
+    x_heads = xs.reshape(B, S, H, P_HEAD).float()
     xh = x_heads * dt[..., None]
     h0 = state["h"] if state is not None else torch.zeros(
         (B, H, P_HEAD, N), dtype=torch.float32, device=x.device)
-    y, h = mamba_ssd_chunked(xh, B_.float(), C_.float(), log_a, h0, chunk)
-    if padn:
-        y, z, x_heads = y[:, :S], z[:, :S], x_heads[:, :S]
-        xs_pre, bc_pre = xs_pre[:, :S], bc_pre[:, :S]
+    ins = (xh, B_.float(), C_.float(), log_a, h0)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    y, h = (ssd_scan_plain if grad else ssd_scan)(*ins)
     out = _mamba_post(p, y, z, x_heads, B, S, di, cfg.norm_eps,
                       norm_group)
     W = ssm.d_conv

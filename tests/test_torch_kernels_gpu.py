@@ -1,6 +1,6 @@
 """The port's CUDA kernels (flash attention, payload pack / unpack, the
-RWKV-6 WKV scan, the MoE decode's routed-expert FFN) against their plain
-versions on the card, the flash
+RWKV-6 WKV scan, the MoE decode's routed-expert FFN, the Mamba-2 chunked
+SSD scan) against their plain versions on the card, the flash
 kernel under autograd in a train step, the MoE and Mamba models and the
 sampler's key chain and noise on the card against the CPU (imports torch only, so it runs where JAX is
 not installed):
@@ -891,3 +891,158 @@ def test_routed_branch_matches_the_dispatch_on_the_card(cuda, E, k, T):
     scale = dense.float().abs().max().item()
     torch.testing.assert_close(routed.float(), dense.float(),
                                atol=2e-2 * scale, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# K6: the Mamba-2 chunked SSD scan (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ssd_scan import (mamba_ssd_chunked,  # noqa: E402
+                                          ssd_scan, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+
+#: Granite-4.0-H-Small's mixer: 128 heads of 64, d_state 128, one group
+K6_SHAPE = (128, 64, 128)
+#: Both sides are fp32 throughout. They differ in the order of the sums
+#: (the kernel's register tiles against the einsums'), in the cumulative
+#: sum's rounding after its scaling by log2(e), and in ex2.approx (2 ulp)
+#: for exp: about 1e-6 of the outputs' scale. 1e-4 of it leaves room for
+#: that over 63 chunks of state; a lost or doubled term (a chunk's state
+#: dropped, one decay too many) moves y and the state by their whole
+#: scale.
+K6_TOL = 1e-4
+
+
+def _k6_inputs(cuda, S, H, P, N, seed=0, B=1):
+    """As a Mamba-2 layer hands them: B and C of order 1, the dt-scaled
+    inputs of order 0.1, log decays in [-0.5, 0], a non-zero state."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, device=cuda, generator=gen)
+    return (rn(B, S, H, P) * 0.1, rn(B, S, N), rn(B, S, N),
+            -0.5 * torch.rand((B, S, H), device=cuda, generator=gen),
+            rn(B, H, P, N) * 0.3)
+
+
+def _k6_close(out, ref):
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(out, ref, atol=K6_TOL * scale, rtol=K6_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 1905, 4000])
+def test_k6_matches_plain(cuda, S):
+    H, P, N = K6_SHAPE
+    ins = _k6_inputs(cuda, S, H, P, N, seed=S)
+    before = ssd_scan.launches
+    y, h = ssd_scan(*ins)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.shape == ins[0].shape and h.shape == ins[4].shape
+    yp, hp = ssd_scan_plain(*ins)
+    _k6_close(y, yp)
+    _k6_close(h, hp)
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+def test_k6_other_state_sizes_and_batches_match_plain(cuda, N):
+    """Jamba's d_state 16 and the sizes between, at batch 3 with a
+    ragged tail, B and C read as strided views of one (B, S, 2N) tensor
+    (as an fp32 layer hands them)."""
+    xh, _, _, log_a, h0 = _k6_inputs(cuda, 150, 4, 64, N, seed=N, B=3)
+    bc = torch.randn(3, 150, 2 * N, device=cuda)
+    B_, C_ = torch.split(bc, N, dim=-1)
+    y, h = ssd_scan(xh, B_, C_, log_a, h0)
+    yp, hp = ssd_scan_plain(xh, B_, C_, log_a, h0)
+    _k6_close(y, yp)
+    _k6_close(h, hp)
+
+
+def test_k6_strong_decay_stays_finite(cuda):
+    """log_a = -30 a step: every exponent is <= 0, so the decays
+    underflow to 0 and nothing overflows."""
+    H, P, N = K6_SHAPE
+    xh, B_, C_, _, h0 = _k6_inputs(cuda, 200, H, P, N, seed=5)
+    log_a = torch.full((1, 200, H), -30.0, device=cuda)
+    y, h = ssd_scan(xh, B_, C_, log_a, h0)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    yp, hp = ssd_scan_plain(xh, B_, C_, log_a, h0)
+    _k6_close(y, yp)
+    _k6_close(h, hp)
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    xh, B_, C_, log_a, h0 = _k6_inputs(cuda, 70, 2, 64, 16)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan(xh.cpu(), B_, C_, log_a, h0)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(xh, B_.double(), C_, log_a, h0)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan(xh, B_, C_[:, :-1], log_a, h0)
+    with pytest.raises(ValueError, match="head size"):
+        ssd_scan(xh[..., :32], B_, C_, log_a, h0[:, :, :32])
+    with pytest.raises(ValueError, match="state size"):
+        ssd_scan(xh, B_[..., :8], C_[..., :8], log_a, h0[..., :8])
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ssd_scan(xh.transpose(2, 3).contiguous().transpose(2, 3), B_, C_,
+                 log_a, h0)
+    with pytest.raises(ValueError, match="h0 must be contiguous"):
+        ssd_scan(xh, B_, C_, log_a, h0.transpose(2, 3).contiguous()
+                 .transpose(2, 3))
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_scan(xh.requires_grad_(), B_, C_, log_a, h0)
+    assert ssd_scan.launches == before
+
+
+def _k6_mixer(cuda):
+    """The reduced Jamba's Mamba mixer on the card in fp32 (2 heads of
+    64, d_state 16) and an input of 70 tokens (a ragged tail)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import ssm
+    cfg = get_reduced_config("jamba-1.5-large-398b").model
+    p = ssm.init_mamba(cfg, cfg.ssm, torch.float32, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    x = torch.randn(2, 70, cfg.d_model, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    return ssm, cfg, p, x
+
+
+def test_mamba_forward_without_a_gradient_launches_k6(cuda):
+    """No gradient required: one K6 call a layer, on the prompt
+    unpadded; the output and the states equal the plain loop's (the
+    same call with a gradient required) within K6_TOL."""
+    ssm, cfg, p, x = _k6_mixer(cuda)
+    before = ssd_scan.launches
+    with torch.no_grad():
+        out, st = ssm.mamba_forward(cfg, cfg.ssm, p, x, None)
+    assert ssd_scan.launches == before + 1
+    pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+    out_p, st_p = ssm.mamba_forward(cfg, cfg.ssm, pg, x, None)
+    assert ssd_scan.launches == before + 1
+    _k6_close(out, out_p.detach())
+    for k in st:
+        _k6_close(st[k], st_p[k].detach())
+
+
+def test_mamba_forward_with_a_gradient_runs_the_plain_loop(cuda,
+                                                           monkeypatch):
+    """Weights that require a gradient (training): the plain loop over
+    chunks runs, K6's counter stays, and the backward reaches every
+    weight with finite gradients."""
+    ssm, cfg, p, x = _k6_mixer(cuda)
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    chunks = []
+
+    def plain(*a, **k):
+        chunks.append(a[0].shape[1])
+        return mamba_ssd_chunked(*a, **k)
+
+    monkeypatch.setattr(ssd_ref, "mamba_ssd_chunked", plain)
+    before = ssd_scan.launches
+    out, _ = ssm.mamba_forward(cfg, cfg.ssm, p, x, None)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before and chunks == [128]
+    for k, v in p.items():
+        assert v.grad is not None and torch.isfinite(v.grad).all(), k

@@ -25,6 +25,7 @@ from repro.models import model as jax_model
 from repro.models import ssm as jax_ssm
 from repro.parallel import NO_MESH
 from repro_torch.configs import get_reduced_config
+from repro_torch.kernels.ssd_scan import mamba_ssd_chunked
 from repro_torch.launch import steps
 from repro_torch.models import model as M
 from repro_torch.models import ssm
@@ -407,8 +408,8 @@ def test_mamba_ssd_chunked_matches_jax(chunk):
     h0 = (rng.standard_normal((B, H, P, N)) * 0.3).astype(np.float32)
     yr, hr = jax_ssm.mamba_ssd_chunked(*(jnp.asarray(t) for t in
                                          (xh, Bm, Cm, log_a, h0)), chunk)
-    y, h = ssm.mamba_ssd_chunked(*(torch.from_numpy(t) for t in
-                                   (xh, Bm, Cm, log_a, h0)), chunk)
+    y, h = mamba_ssd_chunked(*(torch.from_numpy(t) for t in
+                               (xh, Bm, Cm, log_a, h0)), chunk)
     _close(y, yr)
     _close(h, hr)
 
