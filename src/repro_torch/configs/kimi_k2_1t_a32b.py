@@ -1,6 +1,8 @@
 """kimi-k2-1t-a32b [moe] — 61L d_model=7168 64H (GQA kv=8) d_ff=2048
 vocab=163840, MoE 384 experts top-8. Trillion-param MoE (paper-table).
 [arXiv:2501.kimi2]. Full attention => long_500k skipped per shape sheet.
+Its GQA attention of dh 112 mirrors the JAX package and is not Kimi-K2's
+published MLA, which ``kimi-k2-instruct`` carries.
 
 Adafactor optimizer: 1T params * (4B adam m + 4B v + 4B master) does not
 fit 512 v5e chips; factored second moment does (see DESIGN.md).

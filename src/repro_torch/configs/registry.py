@@ -24,6 +24,7 @@ _ARCH_MODULES = {
 #: reference's registry lists too
 _PORT_ONLY_MODULES = {
     "granite-4.0-h-small":  "repro_torch.configs.granite_4p0_h_small",
+    "kimi-k2-instruct":     "repro_torch.configs.kimi_k2_instruct",
 }
 
 

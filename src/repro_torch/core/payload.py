@@ -148,7 +148,7 @@ def from_arch(acfg: ArchConfig, *, max_buffers: int = 10,
     d, f = cfg_m.d_model, cfg_m.d_ff
     sizes_pool += [d * d * 4, d * f * 4, d * 4, 2 * d * 4]
     if cfg_m.moe is not None:
-        sizes_pool.append(d * cfg_m.moe.d_ff_expert * 4)   # one expert matrix
+        sizes_pool.append(d * cfg_m.moe.expert_d_ff * 4)   # one expert matrix
         sizes_pool.append(cfg_m.moe.num_experts * d // 64 * 4)  # router slice
     del per_layer
     rng = np.random.default_rng(seed)

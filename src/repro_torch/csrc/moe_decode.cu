@@ -43,6 +43,11 @@
 //   rounded to T.
 // - The inputs' rows are read through a row stride, so the k assignments
 //   of one token can share one row (a stride of 0).
+// - The weights may hold a share of the experts, e0 .. e0 + E - 1 (an
+//   expert-parallel share on one card): a block whose assignment's
+//   expert lies outside it reads no weight and writes zero partial sums,
+//   so that row's output is zero. The test is on the device, so a
+//   captured graph skips whatever experts its replay's ids name.
 // - The last three launches are programmatic dependent launches: each
 //   kernel lets the next one start once all its blocks run, and the next
 //   waits (griddepcontrol.wait) before it reads what came before, so
@@ -138,6 +143,8 @@ struct Gemv {
   const void* x;         // (A, K) of T, rows x_stride apart
   long long x_stride;    // elements between assignments' rows
   const long long* ids;  // (A,) the expert of each assignment
+  long long e0;          // the first expert the weights hold
+  long long E;           // experts held
   const void* w0;        // (E, K, N) of T
   const void* w1;        // a second matrix on the same rows, or null
   float* part;           // (M, A, S, N): M matrices
@@ -176,15 +183,18 @@ __global__ void __launch_bounds__(kThreads) moe_decode_gemv(const Gemv p) {
   const int n0 = blockIdx.x * TILE + lane * V;
   launch_dependents();
   // the ids were written before the first of K5's launches began
-  const long long e = p.ids[a];
+  const long long e = p.ids[a] - p.e0;
+  // an expert not held: no weight read, zero partial sums
+  const bool held = e >= 0 && e < p.E;
   const T* w = static_cast<const T*>(m ? p.w1 : p.w0) +
-               e * static_cast<long long>(p.K) * p.N + n0;
+               (held ? e : 0) * static_cast<long long>(p.K) * p.N + n0;
   const T* x = static_cast<const T*>(p.x) + a * p.x_stride;
   const int k0 = s * p.R, k1 = min(p.K, k0 + p.R);
   const long long step = static_cast<long long>(kWarps) * p.N;
   int k = k0 + warp;
   const T* wk = w + static_cast<long long>(k) * p.N;
-  if (n0 < p.N) {
+  const bool reads = held && n0 < p.N;
+  if (reads) {
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u)
       if (k + u * kWarps < k1) prefetch_l2(wk + u * step);
@@ -193,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) moe_decode_gemv(const Gemv p) {
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  if (n0 < p.N) {
+  if (reads) {
     // a split's last rows may not fill a group: those loads are skipped
     for (; k < k1; k += kInFlight * kWarps, wk += kInFlight * step) {
       uint4 wv[kInFlight];
@@ -285,10 +295,11 @@ template <typename T>
 int ffn(const void* x, long long x_stride, const long long* ids,
         const void* w_gate, const void* w_up, const void* w_down,
         float* part_up, void* inner, float* part_down, void* out, int A,
-        int d, int f, int s_up, int r_up, int s_down, int r_down, int act,
-        cudaStream_t st) {
+        int d, int f, int s_up, int r_up, int s_down, int r_down, int e0,
+        int E, int act, cudaStream_t st) {
   constexpr int TILE = 32 * (16 / sizeof(T));
-  const Gemv up{x, x_stride, ids, w_gate, w_up, part_up, A, d, f, s_up, r_up};
+  const Gemv up{x, x_stride, ids, e0, E, w_gate, w_up, part_up,
+                A, d, f, s_up, r_up};
   cudaError_t err = launch(moe_decode_gemv<T, 2>,
                            dim3((f + TILE - 1) / TILE, s_up, 2 * A), st,
                            false, up);
@@ -297,8 +308,8 @@ int ffn(const void* x, long long x_stride, const long long* ids,
                st, true, static_cast<const float*>(part_up),
                static_cast<T*>(inner), A, s_up, f, act);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Gemv down{inner, f, ids, w_down, nullptr, part_down, A, f, d,
-                  s_down, r_down};
+  const Gemv down{inner, f, ids, e0, E, w_down, nullptr, part_down,
+                  A, f, d, s_down, r_down};
   err = launch(moe_decode_gemv<T, 1>, dim3((d + TILE - 1) / TILE, s_down, A),
                st, true, down);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -314,21 +325,22 @@ int ffn(const void* x, long long x_stride, const long long* ids,
 // (E, d, f); w_down: (E, f, d); part_up: (2, A, s_up, f) fp32; inner: (A,
 // f) of the weights' type; part_down: (A, s_down, d) fp32; out: (A, d).
 // r_up / r_down: rows of each split, s_up = ceil(d / r_up), s_down =
-// ceil(f / r_down). act: 0 silu, 1 tanh-gelu. bf16: 1 for bfloat16
-// tensors, 0 for float32.
+// ceil(f / r_down). e0, E: the weights hold experts e0 .. e0 + E - 1; an
+// assignment to another gives a zero row. act: 0 silu, 1 tanh-gelu. bf16:
+// 1 for bfloat16 tensors, 0 for float32.
 extern "C" int moe_decode_ffn(const void* x, long long x_stride,
                               const long long* ids, const void* w_gate,
                               const void* w_up, const void* w_down,
                               float* part_up, void* inner, float* part_down,
                               void* out, int A, int d, int f, int s_up,
-                              int r_up, int s_down, int r_down, int act,
-                              int bf16, void* stream) {
+                              int r_up, int s_down, int r_down, int e0,
+                              int E, int act, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return ffn<__nv_bfloat16>(x, x_stride, ids, w_gate, w_up, w_down,
                               part_up, inner, part_down, out, A, d, f, s_up,
-                              r_up, s_down, r_down, act, st);
+                              r_up, s_down, r_down, e0, E, act, st);
   return ffn<float>(x, x_stride, ids, w_gate, w_up, w_down, part_up, inner,
-                    part_down, out, A, d, f, s_up, r_up, s_down, r_down, act,
-                    st);
+                    part_down, out, A, d, f, s_up, r_up, s_down, r_down, e0,
+                    E, act, st);
 }

@@ -1,11 +1,14 @@
 """Public wrapper of the routed-expert GLU FFN kernel (K5).
 
-``moe_decode_ffn(x, ids, w_gate, w_up, w_down, act)`` computes, for each
-assignment row ``x[a]`` and its expert ``e = ids[a]``,
-``(act(x[a] W_gate[e]) * (x[a] W_up[e])) W_down[e]``: a dropless MoE
-decode's expert FFN over its routed experts alone. On CPU tensors it is
-``moe_decode_plain``; on CUDA tensors it launches the hand-written
-Hopper kernel (``csrc/moe_decode.cu``, four launches a call) or raises.
+``moe_decode_ffn(x, ids, w_gate, w_up, w_down, act, expert_offset)``
+computes, for each assignment row ``x[a]`` and its expert ``e =
+ids[a]``, ``(act(x[a] W_gate[e]) * (x[a] W_up[e])) W_down[e]``: a
+dropless MoE decode's expert FFN over its routed experts alone. The
+weights may hold a share of the experts (``expert_offset`` on): a row
+routed elsewhere is zero, and the kernel reads no weight for it. On CPU
+tensors it is ``moe_decode_plain``; on CUDA tensors it launches the
+hand-written Hopper kernel (``csrc/moe_decode.cu``, four launches a
+call) or raises.
 The expert ids stay on the device and nothing waits for it, so a CUDA
 graph that captures the call replays it with whatever ids the graph's
 input holds. The kernel has no backward: on the card an input that
@@ -42,7 +45,7 @@ def _kernel():
         fn = _build.load("moe_decode").moe_decode_ffn
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -102,10 +105,11 @@ def _check(x, ids, w_gate, w_up, w_down, act) -> None:
                          f"{sorted(ACTIVATIONS)}")
 
 
-def _launch(x, ids, w_gate, w_up, w_down, act: str) -> torch.Tensor:
+def _launch(x, ids, w_gate, w_up, w_down, act: str,
+            expert_offset: int) -> torch.Tensor:
     _check(x, ids, w_gate, w_up, w_down, act)
     A, d = x.shape
-    f = w_gate.shape[2]
+    E, f = w_gate.shape[0], w_gate.shape[2]
     s_up, r_up = splits(d, f, 2 * A, x.dtype)
     s_down, r_down = splits(f, d, A, x.dtype)
     n_up = 2 * A * s_up * f
@@ -119,7 +123,7 @@ def _launch(x, ids, w_gate, w_up, w_down, act: str) -> torch.Tensor:
                         w_gate.data_ptr(), w_up.data_ptr(),
                         w_down.data_ptr(), part.data_ptr(), inner.data_ptr(),
                         part[n_up:].data_ptr(), out.data_ptr(), A, d, f,
-                        s_up, r_up, s_down, r_down,
+                        s_up, r_up, s_down, r_down, expert_offset, E,
                         list(ACTIVATIONS).index(act),
                         int(x.dtype == torch.bfloat16), stream)
     if err != 0:
@@ -131,18 +135,22 @@ def _launch(x, ids, w_gate, w_up, w_down, act: str) -> torch.Tensor:
 
 def moe_decode_ffn(x: torch.Tensor, ids: torch.Tensor, w_gate: torch.Tensor,
                    w_up: torch.Tensor, w_down: torch.Tensor,
-                   act: str = "silu") -> torch.Tensor:
+                   act: str = "silu", expert_offset: int = 0
+                   ) -> torch.Tensor:
     """x: (A, d) assignment rows (a row stride of 0 lets the k
     assignments of one token share its row on the card); ids: (A,) int64
-    expert of each row; w_gate, w_up: (E, d, f); w_down: (E, f, d); act:
-    ``silu`` or ``gelu`` (tanh). Returns (A, d) in the weights' dtype."""
+    expert of each row; w_gate, w_up: (E, d, f); w_down: (E, f, d),
+    experts ``expert_offset`` .. + E - 1 (a row routed to another is
+    zero); act: ``silu`` or ``gelu`` (tanh). Returns (A, d) in the
+    weights' dtype."""
     ts = (x, ids, w_gate, w_up, w_down)
     if all(t.device.type == "cpu" for t in ts):
-        return moe_decode_plain(x, ids, w_gate, w_up, w_down, act)
+        return moe_decode_plain(x, ids, w_gate, w_up, w_down, act,
+                                expert_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError("moe_decode_ffn: an input requires a gradient, "
                          "and the kernel has no backward")
-    return _launch(x, ids, w_gate, w_up, w_down, act)
+    return _launch(x, ids, w_gate, w_up, w_down, act, expert_offset)
 
 
 #: calls that launched the kernel since the last reset (four launches

@@ -1,7 +1,8 @@
 """Attention: GQA / qk-norm / sliding-window / logit-softcap, with a
 q-blocked plain path for long sequences, a flash path through the
 hand-written kernel, and a decode path that reads a ring-buffer KV
-cache.
+cache. Multi-head latent attention (MLA, DeepSeek-V3's) has its own
+pair of paths (``mla_forward``, ``mla_decode``) over a latent cache.
 
 Over a mesh (``*_sharded``) each rank runs its share per shard:
 training and prefill split the query heads over ``model`` (the
@@ -18,9 +19,11 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm_simple
+from repro_torch.models.layers import (apply_rope, dense_init,
+                                       rms_norm_simple, yarn_mscale)
 from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
@@ -103,10 +106,13 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
 
 
 def softmax_scale(att: AttentionConfig) -> float:
-    """The scores' scale: the config's, else 1/sqrt(d_head)."""
-    if att.softmax_scale is not None:
-        return att.softmax_scale
-    return 1.0 / math.sqrt(att.d_head)
+    """The scores' scale: the config's, else 1/sqrt(d_head); under YaRN
+    times mscale(mscale_all_dim)^2."""
+    scale = att.softmax_scale if att.softmax_scale is not None \
+        else 1.0 / math.sqrt(att.d_head)
+    if att.yarn is not None and att.yarn.mscale_all_dim:
+        scale *= yarn_mscale(att.yarn.factor, att.yarn.mscale_all_dim) ** 2
+    return scale
 
 
 def sdpa(q, k, v, bias, *, softcap_val: Optional[float],
@@ -149,18 +155,21 @@ def attention_forward(p: dict, att: AttentionConfig, x: torch.Tensor,
 
 def _attend(att: AttentionConfig, q, k, v, positions, *,
             window: Optional[int], causal: bool,
-            block_q: int = 1024) -> torch.Tensor:
+            block_q: int = 1024, scale: Optional[float] = None
+            ) -> torch.Tensor:
     """Softmax attention of q (B,S,H,dh) over k/v (B,S,KV,dh), KV | H, in
-    fp32 scores; q-blocked when S > block_q."""
+    fp32 scores; q-blocked when S > block_q. ``scale``: the scores' (by
+    default the config's ``softmax_scale``)."""
     S = q.shape[1]
+    if scale is None:
+        scale = att.softmax_scale
     n_rep = q.shape[2] // k.shape[2]
     kf, vf = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     kv_pos = positions
     if S <= block_q:
         bias = _mask_bias(positions, kv_pos, causal=causal, window=window)
         return sdpa(q, kf, vf, bias[None, None],
-                    softcap_val=att.logit_softcap,
-                    scale=att.softmax_scale)
+                    softcap_val=att.logit_softcap, scale=scale)
     assert S % block_q == 0, (S, block_q)
     blocks = []
     for i in range(S // block_q):
@@ -168,8 +177,7 @@ def _attend(att: AttentionConfig, q, k, v, positions, *,
         bias = _mask_bias(positions[sl], kv_pos, causal=causal,
                           window=window)
         blocks.append(sdpa(q[:, sl], kf, vf, bias[None, None],
-                           softcap_val=att.logit_softcap,
-                           scale=att.softmax_scale))
+                           softcap_val=att.logit_softcap, scale=scale))
     return torch.cat(blocks, dim=1)
 
 
@@ -253,6 +261,150 @@ def init_cache(att: AttentionConfig, batch: int, max_seq: int,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    index=torch.zeros((), dtype=torch.int64, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+#
+# As DeepSeek-V3's modelling publishes it, per token x:
+#   c_q = RMSNorm(x W_DQ);  q = c_q W_UQ = [q_nope | q_pe] per head
+#   [c_kv | k_pe] = x W_DKV;  c_kv = RMSNorm(c_kv);  k_pe roped, one for
+#   every head
+#   [k_nope | v] = c_kv W_UKV per head
+#   o_h = softmax(([q_nope | q_pe] . [k_nope | k_pe]) * scale) v
+# The prefill runs that expanded form through K3 (v zero-padded to the
+# q / k head dim, the output sliced back). The decode is absorbed: W_UK
+# (W_UKV's key columns) folds into the query, q_lat = q_nope W_UK^T, and
+# W_UV into the output, o_h = (p . c_kv) W_UV, so the scores read the
+# latent cache (c_kv, k_pe) directly and nothing is expanded per
+# position.
+
+def init_mla(cfg: ModelConfig, att: AttentionConfig, dtype, *, device,
+             generator) -> dict:
+    d, H = cfg.d_model, att.n_heads
+    rq, rkv, dr = att.q_lora_rank, att.kv_lora_rank, att.qk_rope_head_dim
+    dn = att.d_head - dr
+    kw = dict(device=device, generator=generator)
+    return {"wq_a": dense_init(d, rq, dtype, **kw),
+            "q_norm": torch.ones((rq,), dtype=dtype, device=device),
+            "wq_b": dense_init(rq, H * att.d_head, dtype, **kw),
+            "wkv_a": dense_init(d, rkv + dr, dtype, **kw),
+            "kv_norm": torch.ones((rkv,), dtype=dtype, device=device),
+            "wkv_b": dense_init(rkv, H * (dn + att.v_head_dim), dtype, **kw),
+            "wo": dense_init(H * att.v_head_dim, d, dtype, **kw)}
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S_cache, kv_lora_rank): the normed latent
+    k_pe: torch.Tensor    # (B, S_cache, qk_rope_head_dim): the roped key
+    # the position of the next token, a 0-d int64 tensor (as KVCache's)
+    index: torch.Tensor
+
+
+def _rope(att: AttentionConfig, x, positions):
+    return apply_rope(x, positions, att.rope_theta,
+                      interleaved=att.rope_interleaved, yarn=att.yarn)
+
+
+def _mla_project(p: dict, att: AttentionConfig, x: torch.Tensor,
+                 positions: torch.Tensor, eps: float):
+    """x (B,S,d) -> q_nope (B,S,H,dn), q_pe (B,S,H,dr) roped, c_kv
+    (B,S,r) normed, k_pe (B,S,dr) roped."""
+    B, S, _ = x.shape
+    r, dr = att.kv_lora_rank, att.qk_rope_head_dim
+    c_q = rms_norm_simple(x @ p["wq_a"], p["q_norm"], eps)
+    q = (c_q @ p["wq_b"]).reshape(B, S, att.n_heads, att.d_head)
+    q_nope, q_pe = q.split([att.d_head - dr, dr], dim=-1)
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm_simple(kv[..., :r], p["kv_norm"], eps)
+    k_pe = _rope(att, kv[..., None, r:], positions)[:, :, 0]
+    return q_nope, _rope(att, q_pe, positions), c_kv, k_pe
+
+
+def mla_forward(p: dict, att: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, eps: float,
+                use_flash: bool = False, return_latent: bool = False):
+    """Full-sequence MLA in the expanded form, causal. With
+    ``use_flash`` the softmax-attention runs in K3 on q and k of d_head
+    and v zero-padded to it (its output sliced to v_head_dim). With
+    ``return_latent`` also (c_kv, k_pe), for the latent cache."""
+    B, S, _ = x.shape
+    H, dh, dv = att.n_heads, att.d_head, att.v_head_dim
+    dr = att.qk_rope_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_project(p, att, x, positions, eps)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, dh - dr + dv)
+    k_nope, v = kv.split([dh - dr, dv], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, dr)], dim=-1)
+    scale = softmax_scale(att)
+    if use_flash:
+        from repro_torch.kernels.flash_attention import flash_attention
+        out = flash_attention(q, k, F.pad(v, (0, dh - dv)), True, None,
+                              None, scale)[..., :dv]
+    else:
+        out = _attend(att, q, k, v, positions, window=None, causal=True,
+                      scale=scale)
+    out = out.reshape(B, S, H * dv) @ p["wo"]
+    return (out, (c_kv, k_pe)) if return_latent else out
+
+
+def mla_decode(p: dict, att: AttentionConfig, x: torch.Tensor,
+               cache: MLACache, *, eps: float
+               ) -> tuple[torch.Tensor, MLACache]:
+    """One-token absorbed MLA. x: (B,1,d); the token's latent goes into
+    its cache slot in place (as ``attention_decode`` writes K/V), then
+    the query, with W_UK folded in, scores the latent cache; the
+    probabilities' sum of latents meets W_UV. Scores, softmax and sums
+    in fp32 over the cache's own values, as ``_decode_attend`` computes
+    them; the two folded products take the weights' dtype."""
+    B = x.shape[0]
+    H, dh, dv = att.n_heads, att.d_head, att.v_head_dim
+    r, dr = att.kv_lora_rank, att.qk_rope_head_dim
+    index = cache.index
+    Sc = cache.c_kv.shape[1]
+    q_nope, q_pe, c_new, kpe_new = _mla_project(
+        p, att, x, index.to(torch.int32).reshape(1), eps)
+    slot = torch.remainder(index, Sc).reshape(1)
+    c_kv, k_pe = cache.c_kv, cache.k_pe
+    c_kv.index_copy_(1, slot, c_new.to(c_kv.dtype))
+    k_pe.index_copy_(1, slot, kpe_new.to(k_pe.dtype))
+    w = p["wkv_b"].reshape(r, H, dh - dr + dv)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w[..., :dh - dr])
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv.float())
+         + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe.float())) \
+        * softmax_scale(att)
+    slots = torch.arange(Sc, dtype=torch.int64, device=x.device)
+    valid = index - torch.remainder(index - slots, Sc) >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    probs = torch.softmax(s + torch.where(valid, zero, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv.float())
+    out = torch.einsum("bhr,rhd->bhd", o_lat.to(w.dtype), w[..., dh - dr:])
+    out = out.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    return out, MLACache(c_kv=c_kv, k_pe=k_pe, index=index + 1)
+
+
+def init_mla_cache(att: AttentionConfig, batch: int, max_seq: int, dtype,
+                   *, device) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_seq, att.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_pe=torch.zeros((batch, max_seq, att.qk_rope_head_dim),
+                         dtype=dtype, device=device),
+        index=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def mla_cache_from_prefill(latent, max_seq: int) -> MLACache:
+    """The prefill's (c_kv, k_pe) in a cache of ``max_seq`` slots (the
+    unwritten ones masked by position)."""
+    c_kv, k_pe = latent
+    B, S, _ = c_kv.shape
+    if max_seq > S:
+        c_kv = F.pad(c_kv, (0, 0, 0, max_seq - S))
+        k_pe = F.pad(k_pe, (0, 0, 0, max_seq - S))
+    return MLACache(c_kv=c_kv, k_pe=k_pe,
+                    index=torch.full((), S, dtype=torch.int64,
+                                     device=c_kv.device))
 
 
 # ---------------------------------------------------------------------------

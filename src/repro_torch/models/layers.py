@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, YarnConfig
 
 
 def truncated_normal(shape, scale, dtype, *, device,
@@ -106,21 +106,68 @@ def profiled(name: str):
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(d_head: int, theta: float, device) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: 0.1 mscale ln(factor) + 1 (1 at no
+    scaling)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(d_head: int, theta: float,
+                          yarn: YarnConfig) -> tuple:
+    """(low, high): the dims whose wavelengths make ``beta_fast`` and
+    ``beta_slow`` turns over the original context, floored and ceiled,
+    within [0, d_head - 1]. The dim of ``b`` turns is d ln(L / (2 pi b))
+    / (2 ln theta)."""
+    def dim(turns):
+        return d_head * math.log(yarn.original_max_position_embeddings
+                                 / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    return (max(math.floor(dim(yarn.beta_fast)), 0),
+            min(math.ceil(dim(yarn.beta_slow)), d_head - 1))
+
+
+def rope_frequencies(d_head: int, theta: float, device,
+                     yarn: Optional[YarnConfig] = None) -> torch.Tensor:
+    """theta^(-2i/d_head) for i < d_head / 2; under YaRN blended with it
+    divided by ``yarn.factor`` on a linear ramp from ``low`` (unscaled at
+    and below) to ``high`` (divided at and above), in float32 as
+    DeepSeek-V3's rotary embedding computes them."""
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
                         device=device) / d_head
-    return 1.0 / (theta ** exps)
+    freqs = 1.0 / (theta ** exps)
+    if yarn is None:
+        return freqs
+    low, high = yarn_correction_range(d_head, theta, yarn)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(d_head // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    return freqs / yarn.factor * ramp + freqs * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               *, interleaved: bool = False,
+               yarn: Optional[YarnConfig] = None) -> torch.Tensor:
     """x: (..., seq, n_heads, d_head); positions: (..., seq). The
-    rotate-half split (first half / second half), not interleaved."""
+    rotate-half split (first half / second half), or with
+    ``interleaved`` the pairs (x[2i], x[2i+1]), each rotated at
+    frequency i and left in place; under YaRN cos and sin scaled by
+    mscale(mscale) / mscale(mscale_all_dim)."""
     d_head = x.shape[-1]
-    freqs = rope_frequencies(d_head, theta, x.device)   # (dh/2,)
+    freqs = rope_frequencies(d_head, theta, x.device, yarn)   # (dh/2,)
     angles = positions[..., None].float() * freqs       # (..., S, dh/2)
     cos = torch.cos(angles)[..., None, :]               # (..., S, 1, dh/2)
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) \
+            / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        cos, sin = cos * m, sin * m
+    if interleaved:
+        xf = x.float().unflatten(-1, (d_head // 2, 2))
+        x1, x2 = xf[..., 0], xf[..., 1]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).flatten(-2)
+        return out.to(x.dtype)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

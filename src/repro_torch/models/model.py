@@ -10,8 +10,8 @@ reference's parameters into this layout.
 Modes:
   train   — full-sequence forward; no state; each layer under activation
             checkpointing when ``acfg.train.remat`` is set
-  prefill — full-sequence forward; returns per-layer states (KV / RWKV /
-            Mamba)
+  prefill — full-sequence forward; returns per-layer states (KV / latent
+            / RWKV / Mamba)
   decode  — single token with per-layer states
 
 ``forward`` casts the fp32 tensors of ``params`` to the compute dtype on
@@ -119,10 +119,12 @@ def _init_layer(cfg: ModelConfig, li: int, dtype, *, device,
         return p
     if kind == "mamba":
         p["mixer"] = ssm_lib.init_mamba(cfg, cfg.ssm, dtype, **kw)
+    elif cfg.attention.mla:
+        p["mixer"] = attn_lib.init_mla(cfg, cfg.attention, dtype, **kw)
     else:
         p["mixer"] = attn_lib.init_attention(cfg, cfg.attention, dtype,
                                              **kw)
-    if cfg.moe_at(pos):
+    if cfg.moe_layer(li):
         p["ffn"] = moe_lib.init_moe(cfg, cfg.moe, dtype, **kw)
     else:
         p["ffn"] = init_ffn(cfg, cfg.d_model, cfg.d_ff, dtype, **kw)
@@ -195,7 +197,7 @@ def _layer_axes(acfg: ArchConfig, li: int) -> Params:
             "wk_cm": LP("fsdp", "d_ff"), "wv_cm": LP("d_ff", "fsdp"),
             "wr_cm": LP("fsdp", "heads")}
         return p
-    if cfg.moe_at(pos):
+    if cfg.moe_layer(li):
         es = acfg.parallel.expert_sharding or cfg.moe.expert_sharding
         f = moe_lib.moe_param_logical_axes(
             es, cfg.moe.d_ff_shared is not None)
@@ -276,7 +278,7 @@ def _apply_layer(cfg: ModelConfig, li: int, p: Params, x: torch.Tensor,
         h2, cm_new = _rwkv_channel_mix(ctx, p["mixer"], h2, state)
         if new_state is not None:
             new_state["shift_cm"] = cm_new
-    elif cfg.moe_at(pos):
+    elif cfg.moe_layer(li):
         # decode is dropless (serving must not drop a live token's experts)
         h2, aux = moe_lib.apply_moe(cfg, cfg.moe, p["ffn"], h2,
                                     dropless=(mode == "decode"), ctx=ctx)
@@ -342,6 +344,9 @@ def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
                ) -> Tuple[torch.Tensor, Optional[Params]]:
     window = cfg.window_at(li % cfg.pattern_period)
     att = cfg.attention
+    if att.mla:
+        return _mla(cfg, p, h, state, mode, positions, max_seq, use_flash,
+                    ctx)
     if ctx.mesh is not None:
         return _attention_sharded(ctx, cfg, p, h, state, mode, positions,
                                   max_seq, use_flash, window)
@@ -357,6 +362,33 @@ def _attention(cfg: ModelConfig, li: int, p: Params, h: torch.Tensor,
     return attn_lib.attention_forward(
         p["mixer"], att, h, positions, window=window, causal=att.causal,
         use_flash=use_flash), None
+
+
+def _mla(cfg: ModelConfig, p: Params, h: torch.Tensor,
+         state: Optional[Params], mode: str,
+         positions: Optional[torch.Tensor], max_seq: Optional[int],
+         use_flash: bool, ctx: ParallelCtx = NO_MESH
+         ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Latent attention: the prefill expanded (K3 with ``use_flash``),
+    leaving the latent cache; the decode absorbed over it. While a
+    profiler records, the range ``model.mla``."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(f"{cfg.name}: latent attention runs on "
+                                  f"one device only")
+    att, eps = cfg.attention, cfg.norm_eps
+    with profiled("model.mla"):
+        if mode == "decode":
+            h, cache = attn_lib.mla_decode(p["mixer"], att, h,
+                                           state["mixer"], eps=eps)
+            return h, {"mixer": cache}
+        out = attn_lib.mla_forward(p["mixer"], att, h, positions, eps=eps,
+                                   use_flash=use_flash,
+                                   return_latent=(mode == "prefill"))
+        if mode != "prefill":
+            return out, None
+        h, latent = out
+        return h, {"mixer": attn_lib.mla_cache_from_prefill(latent,
+                                                            max_seq)}
 
 
 def _attention_sharded(ctx: ParallelCtx, cfg: ModelConfig, p: Params,
@@ -871,6 +903,9 @@ def init_states(acfg: ArchConfig, batch: int, max_seq: int, *,
         if cfg.layer_pattern[pos] == "mamba":
             return {"mixer": ssm_lib.init_mamba_state(cfg, cfg.ssm, batch,
                                                       device=device)}
+        if cfg.attention.mla:
+            return {"mixer": attn_lib.init_mla_cache(
+                cfg.attention, batch, max_seq, cache_dtype, device=device)}
         return {"mixer": attn_lib.init_cache(
             cfg.attention, batch, max_seq, cfg.window_at(pos), cache_dtype,
             device=device)}

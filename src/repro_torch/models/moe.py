@@ -37,6 +37,21 @@ own expert's weights alone (``kernels.moe_decode``, K5 on the card),
 where the three batched products would read every expert's, and the
 combine keeps the dense path's arithmetic. The ``ep`` mesh keeps the
 dispatch, which parks other ranks' assignments.
+
+The router scores by softmax (Mixtral, Granite) or by DeepSeek-V3's
+sigmoid with a selection bias (``MoEConfig.scoring``): the top-k of
+sigmoid(logits) + bias, weighted by the unbiased sigmoids; either way
+the weights are normalised and times ``routed_scaling_factor``.
+
+A layer told it holds a share of the experts (``router_experts``: an
+expert-parallel share on one card) routes over
+all ``router_experts`` and computes only the assignments that fall on
+its ``num_experts`` from ``expert_offset``, under the capacity of the
+whole router: the prefill through the ``ep`` dispatch's parking, the
+decode through K5, which skips the others on the device (no output,
+no weight read). What the absent experts would add is left out. While
+a profiler records, :data:`DROPS` counts the held experts' drops over
+the assignments routed to them, beside every assignment routed.
 """
 from __future__ import annotations
 
@@ -59,7 +74,7 @@ def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
     init (scale 1/sqrt(E*d)) reshaped to ``(E, d, f)``; here expert by
     expert at that scale, so that at full width no fp32 copy of a whole
     tensor is held. The router stays fp32."""
-    d, f, E = cfg.d_model, moe.d_ff_expert, moe.num_experts
+    d, f, E = cfg.d_model, moe.expert_d_ff, moe.num_experts
     kw = dict(device=device, generator=generator)
 
     def experts(d_in, d_out, fan_in):
@@ -69,9 +84,12 @@ def init_moe(cfg: ModelConfig, moe: MoEConfig, dtype, *, device,
                                     dtype, **kw)
         return w
 
-    p = {"router": dense_init(d, E, torch.float32, **kw),
+    p = {"router": dense_init(d, moe.n_routed, torch.float32, **kw),
          "w_up": experts(d, f, E * d),
          "w_down": experts(f, d, E * f)}
+    if moe.scoring == "sigmoid":
+        p["router_bias"] = torch.zeros((moe.n_routed,), dtype=torch.float32,
+                                       device=device)
     if cfg.ffn_activation in ("swiglu", "geglu"):
         p["w_gate"] = experts(d, f, E * d)
     if moe.d_ff_shared is not None:
@@ -102,9 +120,13 @@ class DropCount:
     """The prompt assignments routed past their expert's capacity,
     counted while a profiler records (a traced run's sub-window) and
     never otherwise: ``dropped`` adds up on the device and ``routed``
-    on the host, so counting never waits for the device, and ``read``
-    copies the count to the host, once, after the run. One for the
-    process, as the profiler whose window it follows is."""
+    on the host (on the device where a mask picks the assignments
+    counted), so counting never waits for the device, and ``read``
+    copies the count to the host, once, after the run. ``assigned``
+    counts every assignment of those dispatches on the host, so that in
+    an expert share ``routed / assigned`` is the share routed to held
+    experts. One for the process, as the profiler whose window it
+    follows is."""
 
     def __init__(self):
         self.reset()
@@ -112,27 +134,35 @@ class DropCount:
     def reset(self) -> None:
         self.dropped: Optional[torch.Tensor] = None
         self.routed = 0
+        self.assigned = 0
 
-    def add(self, keep: torch.Tensor) -> None:
-        """``keep``: the (assignments,) kept mask of one dispatch."""
-        n = (~keep).sum()
+    def add(self, keep: torch.Tensor,
+            among: Optional[torch.Tensor] = None) -> None:
+        """``keep``: the (assignments,) kept mask of one dispatch;
+        ``among``: the assignments counted (default all)."""
+        if among is None:
+            n, routed = (~keep).sum(), keep.numel()
+        else:
+            n, routed = (among & ~keep).sum(), among.sum()
         self.dropped = n if self.dropped is None else self.dropped.add_(n)
-        self.routed += keep.numel()
+        self.routed = self.routed + routed
+        self.assigned += keep.numel()
 
     def read(self) -> Tuple[int, int]:
         """(dropped, routed) so far."""
         return (0 if self.dropped is None else int(self.dropped),
-                self.routed)
+                int(self.routed))
 
 
-#: the process's count of prefill assignments past capacity
+#: the process's count of prefill assignments past capacity (of the
+#: held experts, in a share)
 DROPS = DropCount()
 
 
 def _capacity(moe: MoEConfig, n_tokens: int, dropless: bool) -> int:
     if dropless:
         return n_tokens  # max per-expert load is n_tokens (top-k distinct)
-    c = int(n_tokens * moe.top_k * moe.capacity_factor / moe.num_experts)
+    c = int(n_tokens * moe.top_k * moe.capacity_factor / moe.n_routed)
     c = max(4, -(-c // 4) * 4)     # >=4, multiple of 4
     return min(c, n_tokens)
 
@@ -177,16 +207,19 @@ def _expert_ffn(cfg: ModelConfig, p: dict, buf: torch.Tensor
 
 
 def _routed_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                flat_e: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+                flat_e: torch.Tensor, top_w: torch.Tensor,
+                expert_offset: int = 0) -> torch.Tensor:
     """Every assignment kept, each through its own expert alone: x (T,
     d), flat_e (T*k,) in flat (token, slot) order -> (T, d), combined as
-    the dispatch's combine does with every assignment kept."""
+    the dispatch's combine does with every assignment kept. The weights
+    hold experts ``expert_offset`` on; an assignment to another gives
+    zeros."""
     T, k = top_w.shape
     d = x.shape[1]
     # the token's row for each of its k slots (a view at one token)
     rows = x[:, None, :].expand(T, k, d).reshape(T * k, d)
     out = moe_decode_ffn(rows, flat_e, p["w_gate"], p["w_up"],
-                         p["w_down"], _act(cfg))
+                         p["w_down"], _act(cfg), expert_offset)
     w = top_w.reshape(-1).to(out.dtype)
     return torch.sum((out * w[:, None]).to(x.dtype).reshape(T, k, d), dim=1)
 
@@ -194,9 +227,12 @@ def _routed_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _dispatched_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
                     flat_e: torch.Tensor, top_w: torch.Tensor, C: int, *,
                     dropless: bool, n_local_experts: int,
-                    expert_offset: int, es: str, E: int) -> torch.Tensor:
+                    expert_offset: int, es: str, E: int,
+                    share: bool = False) -> torch.Tensor:
     """The sort-based dispatch into an (n_e, C, d) buffer, the batched
-    expert products and the combine: x (T, d) -> (T, d)."""
+    expert products and the combine: x (T, d) -> (T, d). ``share``: the
+    layer holds a share of the experts (``es`` is then ``ep``), whose
+    prompt assignments :data:`DROPS` counts."""
     T, k = top_w.shape
     d = x.shape[1]
     flat_t = torch.arange(T * k, device=x.device) // k
@@ -217,8 +253,11 @@ def _dispatched_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     dest = torch.empty_like(dest_sorted).index_copy_(0, order, dest_sorted)
     keep = torch.empty_like(keep_sorted).index_copy_(0, order, keep_sorted)
 
-    if not dropless and es != "ep" and profiling():
-        DROPS.add(keep)
+    if not dropless and profiling():
+        if share:
+            DROPS.add(keep, among=in_range)
+        elif es != "ep":
+            DROPS.add(keep)
 
     # kept rows are distinct; the overflow row only ever receives zeros
     rows = torch.where(keep[:, None], x[flat_t], 0)
@@ -231,6 +270,27 @@ def _dispatched_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return torch.sum(y, dim=1)
 
 
+def route(moe: MoEConfig, p: dict, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (T, d) -> (the router's scores (T, E) for the load-balance loss,
+    the chosen experts' weights (T, k), their ids (T, k)), in fp32."""
+    # fp32 @ the router (bf16 under compute casting) is fp32, as in JAX
+    logits = _mm(x.float(), p["router"])                 # (T, E)
+    if moe.scoring == "sigmoid":
+        gates = torch.sigmoid(logits)
+        _, top_i = torch.topk(gates + p["router_bias"].float(), moe.top_k,
+                              dim=-1)
+        top_w = gates.gather(-1, top_i)
+        top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-20)
+    else:
+        gates = torch.softmax(logits, dim=-1)
+        top_w, top_i = torch.topk(gates, moe.top_k, dim=-1)  # (T, k)
+        top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    if moe.routed_scaling_factor != 1.0:
+        top_w = top_w * moe.routed_scaling_factor
+    return gates, top_w, top_i
+
+
 def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
                *, dropless: bool = False, n_local_experts: int = 0,
                expert_offset: int = 0, es: str = "tp"
@@ -240,23 +300,23 @@ def _moe_local(cfg: ModelConfig, moe: MoEConfig, p: dict, x: torch.Tensor,
     expert_offset + n_local_experts - 1`` only: the other assignments
     are parked (dropped here, taken by the rank that holds them)."""
     T, d = x.shape
-    E, k = moe.num_experts, moe.top_k
+    E, k = moe.n_routed, moe.top_k
     C = _capacity(moe, T, dropless)
+    share = moe.is_share
+    if share:
+        n_local_experts, expert_offset, es = \
+            moe.num_experts, moe.expert_offset, "ep"
 
-    # fp32 @ the router (bf16 under compute casting) is fp32, as in JAX
-    logits = _mm(x.float(), p["router"])                 # (T, E)
-    gates = torch.softmax(logits, dim=-1)
-    top_w, top_i = torch.topk(gates, k, dim=-1)          # (T, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
-
+    gates, top_w, top_i = route(moe, p, x)
     flat_e = top_i.reshape(-1)                           # (T*k,)
-    if dropless and es != "ep" and T * k < E \
+    if dropless and (es != "ep" or share) and T * k < E \
             and cfg.ffn_activation in ("swiglu", "geglu"):
-        y = _routed_ffn(cfg, p, x, flat_e, top_w)
+        y = _routed_ffn(cfg, p, x, flat_e, top_w, expert_offset)
     else:
         y = _dispatched_ffn(cfg, p, x, flat_e, top_w, C, dropless=dropless,
                             n_local_experts=n_local_experts,
-                            expert_offset=expert_offset, es=es, E=E)
+                            expert_offset=expert_offset, es=es, E=E,
+                            share=share)
     if moe.d_ff_shared is not None:
         y = y + apply_ffn(cfg, {"w_gate": p["shared_gate"],
                                 "w_up": p["shared_up"],

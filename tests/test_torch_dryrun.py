@@ -486,9 +486,14 @@ def test_dryrun_cli_production_cell(runs):
 #: the port's config fields the reference lacks, with their defaults
 PORT_ONLY = {"model": {"embedding_multiplier": None,
                        "residual_multiplier": None, "logits_scaling": None,
-                       "norm_eps": 1e-6},
-             "attention": {"softmax_scale": None},
-             "moe": {"d_ff_shared": None}}
+                       "norm_eps": 1e-6, "first_k_dense": 0},
+             "attention": {"softmax_scale": None, "rope_interleaved": False,
+                           "yarn": None, "kv_lora_rank": None,
+                           "q_lora_rank": None, "qk_rope_head_dim": 0,
+                           "v_head_dim": None},
+             "moe": {"d_ff_shared": None, "d_ff_routed": None,
+                     "scoring": "softmax", "routed_scaling_factor": 1.0,
+                     "router_experts": None, "expert_offset": 0}}
 
 
 @pytest.mark.parametrize("arch", OVERRIDE_ARCHS)

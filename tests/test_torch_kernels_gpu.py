@@ -516,7 +516,8 @@ def test_moe_prefill_is_bit_identical_across_runs(cuda):
         assert torch.equal(a["mixer"].v, b["mixer"].v)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "kimi-k2-instruct"])
 def test_reduced_fp32_forward_on_the_card_matches_the_cpu(cuda, arch):
     """The reduced model in fp32, the same parameters on the card (K3 on
     its SIMT path, the MoE dispatch, Mamba's chunked SSD) and on the CPU:
@@ -836,6 +837,39 @@ def test_k5_replays_in_a_cuda_graph_with_new_ids(cuda):
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=K5_TOLS["bfloat16"],
                                    rtol=K5_TOLS["bfloat16"])
+
+
+@pytest.mark.parametrize("offset", [0, 16])
+def test_k5_skips_experts_it_does_not_hold(cuda, offset):
+    """Kimi-K2's top-8 at its widths over weights of 8 experts held from
+    ``offset`` of a router of 384: rows routed elsewhere are exactly
+    zero, the others equal the plain version's, directly and replayed
+    in a CUDA graph with new ids."""
+    k, d, f, E = 8, 7168, 2048, 8
+    ws = _k5_weights(cuda, torch.bfloat16, d, f, E)
+    rows, _ = _k5_rows(cuda, torch.bfloat16, 1, k, d, E)
+    ids = torch.tensor([offset, 300, offset + 7, 0, offset + 3, 383,
+                        offset + 3, 17], device=cuda)
+    held = (ids >= offset) & (ids < offset + E)
+    out = moe_decode_ffn(rows, ids, *ws, "silu", offset)
+    ref = moe_decode_plain(rows, ids, *ws, "silu", offset)
+    assert torch.equal(out[~held], torch.zeros_like(out[~held]))
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=K5_TOLS["bfloat16"],
+                               rtol=K5_TOLS["bfloat16"])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe_decode_ffn(rows, ids, *ws, "silu", offset)
+    new = torch.tensor([383, offset + 1, 5, offset + 6, 200, 201, offset,
+                        offset + 2], device=cuda)
+    ids.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    held = (new >= offset) & (new < offset + E)
+    assert torch.equal(out[~held], torch.zeros_like(out[~held]))
+    torch.testing.assert_close(
+        out.float(), moe_decode_plain(rows, new, *ws, "silu", offset)
+        .float(), atol=K5_TOLS["bfloat16"], rtol=K5_TOLS["bfloat16"])
 
 
 def test_k5_refuses_what_it_does_not_take(cuda):

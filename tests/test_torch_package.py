@@ -42,20 +42,77 @@ COPIED = sorted(
 # which leaves the syntax tree unchanged, so copies are compared as
 # syntax trees. The configs carry port-only fields, each defaulting to
 # the reference's behaviour (a shared expert, a softmax scale, the muP
-# multipliers and the norms' epsilon: Granite-4.0-H's mechanisms), and
-# the registry a port-only entry kept out of ``list_archs`` (so out of
-# every test and dry-run cell that holds the port to the reference).
+# multipliers and the norms' epsilon: Granite-4.0-H's mechanisms; MLA,
+# YaRN, a dense first layer, the sigmoid router and an expert share:
+# Kimi-K2-Instruct's, with ``reduced`` cutting MLA and the share, and
+# the parameter counts going layer by layer over them, which the payload
+# model reads with the routed experts' width), and the registry
+# port-only entries kept out of ``list_archs`` (so out of every test and
+# dry-run cell that holds the port to the reference);
+# ``kimi_k2_1t_a32b.py``'s docstring names the entry that carries MLA.
 DIFFERENCES = {
     "configs/base.py": [
         ("""    use_rope: bool = True
     # softmax scale of the scores; None = 1/sqrt(d_head)
     softmax_scale: Optional[float] = None
+    # rope over interleaved pairs (x[2i], x[2i+1]) at frequency i
+    # (DeepSeek-V3's) instead of the first half against the second
+    rope_interleaved: bool = False
+    yarn: Optional[YarnConfig] = None
+    # multi-head latent attention (DeepSeek-V2/V3's MLA) where
+    # kv_lora_rank is set: queries through a normed latent of
+    # q_lora_rank, keys and values expanded from one normed latent of
+    # kv_lora_rank shared by every head, beside one roped key of
+    # qk_rope_head_dim shared by every head. d_head is the query / key
+    # head dim (qk_nope_head_dim + qk_rope_head_dim), v_head_dim the
+    # value's; n_kv_heads equals n_heads
+    kv_lora_rank: Optional[int] = None
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 0
+    v_head_dim: Optional[int] = None
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank is not None
 """, """    use_rope: bool = True
 """),
         ("""    aux_loss_weight: float = 0.01
     # width of one shared SwiGLU expert every token runs beside the
     # routed ones; None = none
     d_ff_shared: Optional[int] = None
+    # the routed experts' width where the configuration gives it apart
+    # from its intermediate size, which is then the dense layers'
+    # (DeepSeek-V3's ``moe_intermediate_size``); it takes precedence over
+    # ``d_ff_expert``, which a harness sets from that intermediate size
+    d_ff_routed: Optional[int] = None
+    # 'softmax': top-k of the softmax over the router's logits;
+    # 'sigmoid': DeepSeek-V3's noaux_tc, top-k of sigmoid(logits) plus
+    # a selection bias (``router_bias``), weighted by the unbiased scores.
+    # Either way the top-k weights are divided by their sum, then
+    # multiplied by the scaling factor
+    scoring: str = "softmax"
+    routed_scaling_factor: float = 1.0
+    # an expert-parallel share: the router's width where the layer holds
+    # only ``num_experts`` of the experts, ``expert_offset`` .. +
+    # num_experts - 1, and computes the assignments that fall on them
+    # alone; None = num_experts (every expert held)
+    router_experts: Optional[int] = None
+    expert_offset: int = 0
+
+    @property
+    def expert_d_ff(self) -> int:
+        \"\"\"The width of one routed expert.\"\"\"
+        return self.d_ff_routed or self.d_ff_expert
+
+    @property
+    def n_routed(self) -> int:
+        \"\"\"The router's width: the experts every token is routed over.\"\"\"
+        return self.router_experts or self.num_experts
+
+    @property
+    def is_share(self) -> bool:
+        \"\"\"Whether the layer holds only some of the router's experts.\"\"\"
+        return self.n_routed != self.num_experts
 """, """    aux_loss_weight: float = 0.01
 """),
         ("""    max_position_embeddings: int = 1_048_576
@@ -67,7 +124,175 @@ DIFFERENCES = {
     logits_scaling: Optional[float] = None
     # epsilon of every RMSNorm / LayerNorm and of Mamba's gated norm
     norm_eps: float = 1e-6
+    # leading layers whose FFN is dense (of d_ff) where the pattern puts
+    # an MoE (DeepSeek-V3's first_k_dense_replace)
+    first_k_dense: int = 0
 """, """    max_position_embeddings: int = 1_048_576
+"""),
+        ("""@dataclass(frozen=True)
+class YarnConfig:
+    \"\"\"YaRN's rope scaling (arXiv:2309.00071), as DeepSeek-V3 publishes
+    it: the inverse frequencies blend theta^(-2i/d) with it divided by
+    ``factor`` over the dims between the correction dims of
+    ``beta_fast`` and ``beta_slow`` rotations in
+    ``original_max_position_embeddings``; cos and sin scale by
+    mscale(mscale) / mscale(mscale_all_dim), and the softmax scale by
+    mscale(mscale_all_dim)^2 (mscale(m) = 0.1 m ln(factor) + 1).\"\"\"
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+""", ""),
+        ("""    def moe_layer(self, li: int) -> bool:
+        \"\"\"Whether layer ``li`` (not a pattern position) runs an MoE.\"\"\"
+        return li >= self.first_k_dense and \\
+            self.moe_at(li % self.pattern_period)
+
+""", ""),
+        ("""    if att is not None and att.mla:
+        # MLA's ranks and head dims cut alike: q / k 16 + 8 rope, v 16
+        att = dataclasses.replace(att, d_head=24, qk_rope_head_dim=8,
+                                  v_head_dim=16, q_lora_rank=32,
+                                  kv_lora_rank=16)
+    if moe is not None and m.moe.router_experts:
+        # a share: 4 experts held of a router of 8, dropless
+        moe = dataclasses.replace(moe, router_experts=8, d_ff_routed=96,
+                                  capacity_factor=8 / moe.top_k)
+""", ""),
+        ("""    def param_counts(self) -> dict:
+        \"\"\"Analytic parameter count per component, in elements: layer by
+        layer, MLA by its ranks, a dense leading layer by ``d_ff``, an MoE
+        by the experts it holds (``expert_d_ff``), its router (and the
+        sigmoid router's bias) over ``n_routed`` and its shared expert.\"\"\"
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        counts = {"embed": v * d}
+        if not self.tie_embeddings and not self.is_encoder:
+            counts["lm_head"] = v * d
+        att = self.attention
+        n_mat = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        layers = 0
+        for li in range(self.n_periods * self.pattern_period):
+            kind = self.layer_pattern[li % self.pattern_period]
+            layer = 0
+            if kind == "attn" and att.mla:
+                H, dr = att.n_heads, att.qk_rope_head_dim
+                rq, rkv = att.q_lora_rank, att.kv_lora_rank
+                layer += d * rq + rq + rq * H * att.d_head   # q, its norm
+                layer += d * (rkv + dr) + rkv                # latent, norm
+                layer += rkv * H * (att.d_head - dr + att.v_head_dim)
+                layer += H * att.v_head_dim * d              # o
+            elif kind == "attn":
+                hq = att.n_heads * att.d_head
+                hkv = att.n_kv_heads * att.d_head
+                layer += d * hq + 2 * d * hkv + hq * d  # q,k,v,o
+                if att.qkv_bias:
+                    layer += hq + 2 * hkv
+            elif kind == "mamba":
+                di = self.ssm.expand * d
+                layer += d * 2 * di                  # in_proj
+                layer += di * self.ssm.d_conv        # conv
+                layer += di * (2 * self.ssm.d_state + 1) + di  # x_proj-ish + dt
+                layer += di * d                      # out_proj
+            elif kind == "rwkv":
+                layer += 4 * d * d + 6 * d           # r,k,v,o + mixes
+                layer += d * d                       # gate
+            # FFN
+            if self.moe_layer(li):
+                e = self.moe
+                layer += e.num_experts * n_mat * d * e.expert_d_ff
+                layer += d * e.n_routed              # router
+                if e.scoring == "sigmoid":
+                    layer += e.n_routed              # its selection bias
+                if e.d_ff_shared is not None:
+                    layer += n_mat * d * e.d_ff_shared
+            else:
+                layer += n_mat * d * f
+            layer += 2 * d                           # two norms
+            layers += layer
+        counts["layers"] = layers
+        counts["final_norm"] = d
+        return counts
+
+    def num_params(self) -> int:
+        return int(sum(self.param_counts().values()))
+
+    def num_active_params(self) -> int:
+        \"\"\"Active params per token (MoE counts top_k experts only; a layer
+        holding a share of the experts, the top_k x num_experts /
+        n_routed of its experts a token reaches on average).\"\"\"
+        if self.moe is None:
+            return self.num_params()
+        e = self.moe
+        n_mat = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        idle = e.num_experts * (1 - e.top_k / e.n_routed) if e.is_share \\
+            else e.num_experts - e.top_k
+        dead = sum(idle * n_mat * self.d_model * e.expert_d_ff
+                   for li in range(self.num_layers) if self.moe_layer(li))
+        return int(self.num_params() - dead)
+
+
+""", """    def param_counts(self) -> dict:
+        \"\"\"Analytic parameter count per component, in elements.\"\"\"
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        counts = {"embed": v * d}
+        if not self.tie_embeddings and not self.is_encoder:
+            counts["lm_head"] = v * d
+        per_layer = 0.0
+        att = self.attention
+        for pos in range(self.pattern_period):
+            kind = self.layer_pattern[pos]
+            layer = 0
+            if kind == "attn":
+                hq = att.n_heads * att.d_head
+                hkv = att.n_kv_heads * att.d_head
+                layer += d * hq + 2 * d * hkv + hq * d  # q,k,v,o
+                if att.qkv_bias:
+                    layer += hq + 2 * hkv
+            elif kind == "mamba":
+                di = self.ssm.expand * d
+                layer += d * 2 * di                  # in_proj
+                layer += di * self.ssm.d_conv        # conv
+                layer += di * (2 * self.ssm.d_state + 1) + di  # x_proj-ish + dt
+                layer += di * d                      # out_proj
+            elif kind == "rwkv":
+                layer += 4 * d * d + 6 * d           # r,k,v,o + mixes
+                layer += d * d                       # gate
+            # FFN
+            if self.moe_at(pos):
+                e = self.moe
+                n_mat = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+                layer += e.num_experts * n_mat * d * e.d_ff_expert
+                layer += d * e.num_experts           # router
+            else:
+                n_mat = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+                layer += n_mat * d * f
+            layer += 2 * d                           # two norms
+            per_layer += layer
+        counts["layers"] = per_layer * self.n_periods
+        counts["final_norm"] = d
+        return counts
+
+    def num_params(self) -> int:
+        return int(sum(self.param_counts().values()))
+
+    def num_active_params(self) -> int:
+        \"\"\"Active params per token (MoE counts top_k experts only).\"\"\"
+        if self.moe is None:
+            return self.num_params()
+        e = self.moe
+        n_mat = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        dead = 0.0
+        for pos in range(self.pattern_period):
+            if self.moe_at(pos):
+                dead += (e.num_experts - e.top_k) * n_mat * \\
+                    self.d_model * e.d_ff_expert
+        return int(self.num_params() - dead * self.n_periods)
+
+
 """),
     ],
     "configs/registry.py": [
@@ -77,6 +302,7 @@ DIFFERENCES = {
 #: reference's registry lists too
 _PORT_ONLY_MODULES = {
     "granite-4.0-h-small":  "repro.configs.granite_4p0_h_small",
+    "kimi-k2-instruct":     "repro.configs.kimi_k2_instruct",
 }
 """, ""),
         ("""    modules = {**_ARCH_MODULES, **_PORT_ONLY_MODULES}
@@ -86,6 +312,16 @@ _PORT_ONLY_MODULES = {
 """, """    if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     mod = importlib.import_module(_ARCH_MODULES[arch])
+"""),
+    ],
+    "configs/kimi_k2_1t_a32b.py": [
+        ("""Its GQA attention of dh 112 mirrors the JAX package and is not Kimi-K2's
+published MLA, which ``kimi-k2-instruct`` carries.
+""", ""),
+    ],
+    "core/payload.py": [
+        ("""        sizes_pool.append(d * cfg_m.moe.expert_d_ff * 4)   # one expert matrix
+""", """        sizes_pool.append(d * cfg_m.moe.d_ff_expert * 4)   # one expert matrix
 """),
     ],
     "rpc/framing.py": [
